@@ -1,0 +1,11 @@
+"""Model zoo of the port: the dense decoder family so far."""
+from .common import ModelConfig, Params, resolve_device
+from .convert import params_from_jax
+from .transformer import (decode_step, forward, init_cache, init_model,
+                          layer_windows, zero_cache_slot)
+
+__all__ = [
+    "ModelConfig", "Params", "decode_step", "forward", "init_cache",
+    "init_model", "layer_windows", "params_from_jax", "resolve_device",
+    "zero_cache_slot",
+]

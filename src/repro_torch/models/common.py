@@ -1,0 +1,114 @@
+"""Shared model machinery: config, device choice, norms, RoPE, init.
+
+Port of ``repro.models.common`` for the dense family.  Models are plain
+dictionaries of tensors plus functions on them, laid out exactly as the
+reference's pytrees (per-layer parameters stacked on a leading axis), so
+``convert.params_from_jax`` is a leaf-by-leaf copy.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+Params = Dict[str, Any]
+DeviceLike = Union[str, torch.device, None]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Field-for-field copy of the reference ``ModelConfig``; ``dtype`` is
+    a torch dtype.  Only the dense family runs in this port so far."""
+    name: str
+    arch_kind: str                   # dense | moe | hybrid | rwkv | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    local_window: int = 0
+    global_every: int = 0
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    block_pattern: Tuple[str, ...] = ()
+    rglru_dim: int = 0
+    conv1d_width: int = 4
+    n_enc_layers: int = 0
+    enc_frames: int = 1500
+    n_patches: int = 256
+    mrope_sections: Tuple[int, int, int] = (0, 0, 0)
+    dtype: Any = torch.bfloat16
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = True
+    # int8 KV cache with per-vector scales
+    kv_quant: bool = False
+    # run the MLP through the hand-written CUDA kernel (kernels/fused_mlp)
+    use_kernels: bool = False
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding rows padded to a TP-shardable multiple (256)."""
+        return -(-self.vocab // 256) * 256
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller
+    names another.  Raises rather than quietly falling back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on "
+            "the CPU")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
+
+
+def rope_freqs(hd: int, theta: float, device: DeviceLike = None
+               ) -> torch.Tensor:
+    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                # (hd/2,)
+    angles = positions[..., None].float() * freqs          # (..., S, hd/2)
+    angles = angles[..., None, :]                          # (..., S, 1, hd/2)
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Normal init scaled by fan-in (``shape[0]``), drawn in fp32 from
+    ``gen`` on ``gen``'s device and cast to ``dtype``."""
+    fan_in = shape[0]
+    s = scale if scale is not None else fan_in ** -0.5
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w * s).to(dtype)
