@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch/CUDA port: build, check and serve on one card.
+"""Chip smoke of the PyTorch/CUDA port: build, check, serve and plan on
+one card.
 
     python3 chip_smoke.py
 
@@ -8,15 +9,27 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
 
 1. device: requires CUDA; prints versions, the card's name and power
    limit, and turns TF32 off for float32 products;
-2. build: compiles every kernel of the serving path with ``nvcc``;
+2. build: compiles every kernel (fused_mlp, maxplus_scan, price_rows)
+   with ``nvcc``, one process per source, all started together;
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch
-   version at the main path's shapes, with times, the bound and a
-   PyTorch yardstick (``library_ms``);
+   version at the main paths' shapes, with times, the bound, a PyTorch
+   yardstick (``library_ms``, where one call computes the function) and,
+   for the planner's launch-bound kernels, the launch floor and the
+   kernel's device time by the profiler;
 4. serve: qwen2.5-3b at full width (random bf16 weights from a seed)
    answers 6 requests through ``ServeEngine`` with the kernels on; the
    launch counts of that run must show every kernel on the path; one
    decode step is then compared with the plain path from the same cache;
-5. small reference: the smoke config in float32 on the card, decode
+5. plan: the 8 XR-bench tasks on ``PAPER_HW``/AMP through
+   ``get_planner().plan(PlanRequest(g, engine="torch"))`` on ``cuda``;
+   every candidate batch goes through the CUDA ``price_rows`` (one
+   launch per edge bucket); each plan must equal the numpy engine's and
+   ``tests/golden/xrbench_plans.json``; the real batches of this run are
+   then held against the plain version;
+6. simulate: every segment of those plans through
+   ``simulate_segment(engine="torch")``, whose max-plus scans all go
+   through the CUDA ``maxplus_chunked``, against ``engine="numpy"``;
+7. small reference: the smoke config in float32 on the card, decode
    logits against prefill logits.
 
 Any failure raises and exits non-zero.  The second-last line is the JSON
@@ -37,9 +50,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 #: H100 SXM data sheet: HBM3 rate and dense peaks by input type
-#: (bf16 on the tensor cores; float32 on the CUDA cores, TF32 is off)
+#: (bf16 on the tensor cores; float32 and float64 on the CUDA cores,
+#: TF32 is off; the planner's kernels run float64)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "float64": 34e12}
 #: kernel vs plain: f32 differs only in summation order (fp32 atomics
 #: over F chunks); bf16 also in where h and the output round to bf16
 KERNEL_TOL = {"bfloat16": 2e-2, "float32": 2e-4}
@@ -51,6 +65,22 @@ LOGIT_TOL = 5e-2
 SMALL_TOL = 1e-4
 
 FUSED_MLP_SHAPES = [("decode", 4), ("prefill", 256), ("ragged", 5)]
+
+#: the simulator scans one row of T <= 512 bursts (DEFAULT_MAX_BURSTS);
+#: (label, B, T)
+MAXPLUS_SHAPES = [("path", 1, 512), ("path-353", 1, 353), ("path-9", 1, 9),
+                  ("batch", 64, 512)]
+#: max-plus kernel vs plain: fractional inputs, tree-order (kernel) vs
+#: prefix-sum (plain) rounding; integer inputs must be bit-equal
+MAXPLUS_RTOL = 1e-12
+#: price_rows kernel vs plain, relative (both should be bit-equal: the
+#: kernel is built without FMA); ``congested`` must be equal
+PRICE_RTOL = 1e-6
+#: torch vs numpy engine: plan floats; simulated latency (1e-9 past 2^24)
+PLAN_RTOL = 1e-6
+SIM_RTOL = 1e-6
+SIM_RTOL_BIG = 1e-9
+GOLDEN = ROOT / "tests" / "golden" / "xrbench_plans.json"
 
 
 def fail(msg: str) -> None:
@@ -106,7 +136,7 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    results = build.build(["fused_mlp"])
+    results = build.build(["fused_mlp", "maxplus_scan", "price_rows"])
     print(f"build: {len(results)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s")
     for r in results:
@@ -168,7 +198,370 @@ def phase_kernels():
     # ragged D and F too (the shapes above are ragged only in T)
     rows += [check_fused_mlp("mask-check", 5, 200, 300, dt)
              for dt in ("bfloat16", "float32")]
-    return rows
+    floor_ms = launch_floor_ms()
+    print(f"launch floor: {floor_ms * 1e3:.2f} us per one-element torch op")
+    mp_rows = [check_maxplus(label, B, T, floor_ms)
+               for label, B, T in MAXPLUS_SHAPES]
+    exact = check_maxplus_exact()
+    return rows, mp_rows, exact, floor_ms
+
+
+def device_us(fn, kernel_name: str, calls: int = 20):
+    """Mean device time of ``kernel_name`` per call of ``fn``, from
+    ``torch.profiler`` (None if the profiler saw no such kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and kernel_name in e.name]
+    if not evs:
+        return None
+    return sum(e.time_range.elapsed_us() for e in evs) / calls
+
+
+def launch_floor_ms() -> float:
+    """Time per call of PyTorch's own smallest launch (a one-element
+    in-place add), back to back: the floor under any tiny kernel."""
+    import torch
+    x = torch.zeros(1, device="cuda")
+    return time_ms(lambda: x.add_(1.0), torch.cuda.synchronize)
+
+
+def _bound(nbytes: float, ops: float, dtype_name: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_maxplus(label: str, B: int, T: int, floor_ms: float):
+    """One shape: the max-plus kernel against its plain version."""
+    import torch
+    from repro_torch.kernels.maxplus_scan import (maxplus_chunked,
+                                                  maxplus_chunked_ref)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(B * 1000 + T)
+
+    def rnd(*shape, scale):
+        return torch.rand(shape, generator=gen, device="cuda",
+                          dtype=torch.float64) * scale
+
+    # cycle-count-like inputs: u rising, s a fractional service time
+    u = rnd(B, T, scale=50.0).cumsum(dim=1) + 2.0 ** 25
+    s, h0 = rnd(B, T, scale=3.0), rnd(B, scale=100.0)
+    out = maxplus_chunked(u, s, h0)
+    exp = maxplus_chunked_ref(u, s, h0)
+    torch.cuda.synchronize()
+    check(out.shape == (B, T) and out.dtype == torch.float64,
+          f"maxplus_chunked {label}: {out.dtype} {tuple(out.shape)}")
+    diff = (out - exp).abs()
+    rel = float((diff / exp.abs()).max())
+    sync = torch.cuda.synchronize
+    bound_ms, bound_by = _bound((3 * B * T + B) * 8, 2 * B * T, "float64")
+    row = {"shape": label, "B": B, "T": T,
+           "max_abs_err": float(diff.max()), "max_rel_err": rel,
+           "tol_rel": MAXPLUS_RTOL, "bit_equal": bool(torch.equal(out, exp)),
+           "ms": time_ms(lambda: maxplus_chunked(u, s, h0), sync),
+           "plain_ms": time_ms(lambda: maxplus_chunked_ref(u, s, h0), sync),
+           "device_ms": _us_to_ms(device_us(
+               lambda: maxplus_chunked(u, s, h0), "maxplus_kernel")),
+           "launch_floor_ms": floor_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None}
+    print("maxplus_chunked " + json.dumps(row))
+    check(rel <= MAXPLUS_RTOL, f"maxplus_chunked {label}: max rel err "
+                               f"{rel:.3g} above {MAXPLUS_RTOL}")
+    return row
+
+
+def check_maxplus_exact():
+    """Integer-valued scans past 2^24 cycles: kernel, plain version and
+    the scalar loop must agree bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.maxplus_scan import (maxplus_chunked,
+                                                  maxplus_chunked_ref,
+                                                  maxplus_scan_reference)
+    rng = np.random.default_rng(3)
+    u = rng.integers(2 ** 25, 2 ** 30, (4, 4096)).astype(np.float64)
+    u[:, ::7] = -math.inf
+    u[0, :] = -math.inf
+    u[0, 0] = float(2 ** 26)              # the reference suite's case
+    s = rng.integers(0, 9, (4, 4096)).astype(np.float64)
+    s[0, :] = 1.5
+    loop = np.stack([maxplus_scan_reference(u[b], s[b]) for b in range(4)])
+    ut = torch.from_numpy(u).to("cuda")
+    st = torch.from_numpy(s).to("cuda")
+    h0 = torch.full((4,), -math.inf, dtype=torch.float64, device="cuda")
+    out = maxplus_chunked(ut, st, h0).cpu().numpy()
+    plain = maxplus_chunked_ref(ut, st, h0).cpu().numpy()
+    ok = bool(np.array_equal(out, loop) and np.array_equal(plain, loop)
+              and loop[0, -1] > 2 ** 26 + 6000)
+    print(f"maxplus_chunked beyond 2^24, integer inputs (4, 4096): "
+          f"bit-equal to the scalar loop: {ok}")
+    check(ok, "maxplus_chunked is not bit-equal beyond 2^24")
+    return {"bit_equal_beyond_2pow24": ok}
+
+
+def _us_to_ms(us):
+    return None if us is None else us / 1e3
+
+
+def check_price_rows(label: str, rows, E_pad: int, floor_ms: float):
+    """One real batch of the planning run: the pricing kernel against
+    its plain version on the same device tensors."""
+    import torch
+    from repro_torch.core.pipeline_model_torch import pack_rows
+    from repro_torch.kernels.price_rows import price_rows, price_rows_ref
+    args = pack_rows(rows, E_pad, "cuda")
+    got = price_rows(*args)
+    exp = price_rows_ref(*args)
+    torch.cuda.synchronize()
+    err, rel = 0.0, 0.0
+    for i in (0, 2, 3):                  # latency, hop energy, deltas
+        d = (got[i] - exp[i]).abs()
+        err = max(err, float(d.max()))
+        rel = max(rel, float((d / exp[i].abs().clamp(min=1e-300)).max()))
+    same_congested = bool(torch.equal(got[1], exp[1]))
+    B = len(rows)
+    inc, fin = args[9], args[8]
+    sync = torch.cuda.synchronize
+    nbytes = (7 * B * E_pad * 8 + 2 * B * E_pad + B * E_pad * E_pad + 8 * B
+              + 8 * B + B + 8 * B + 8 * B * E_pad)
+    # what these candidates need: ~16 operations per edge, 4 per incoming
+    # edge (divide, multiply, two maxima), 3 per final edge, 1 per row
+    ops = (16 * sum(r.n_edges for r in rows) + 4 * int(inc.sum())
+           + 3 * int(fin.sum()) + B)
+    bound_ms, bound_by = _bound(nbytes, ops, "float64")
+    row = {"shape": label, "B": B, "E_pad": E_pad,
+           "max_abs_err": err, "max_rel_err": rel, "tol_rel": PRICE_RTOL,
+           "congested_equal": same_congested,
+           "bit_equal": all(torch.equal(g, e) for g, e in zip(got, exp)),
+           "ms": time_ms(lambda: price_rows(*args), sync),
+           "plain_ms": time_ms(lambda: price_rows_ref(*args), sync),
+           "device_ms": _us_to_ms(device_us(lambda: price_rows(*args),
+                                            "price_rows_kernel")),
+           "launch_floor_ms": floor_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None}
+    print("price_rows " + json.dumps(row))
+    check(rel <= PRICE_RTOL and same_congested,
+          f"price_rows {label}: max rel err {rel:.3g} (tol {PRICE_RTOL}), "
+          f"congested equal: {same_congested}")
+    return row
+
+
+def _snapshot_plan(plan) -> dict:
+    """The fields ``tests/test_golden_plans.py`` pins (copied, since that
+    file imports the JAX package)."""
+    return {
+        "topology": plan.topology.value,
+        "latency_cycles": plan.latency_cycles,
+        "dram_bytes": plan.dram_bytes,
+        "segments": [{
+            "start": s.segment.start, "stop": s.segment.stop,
+            "depth": s.segment.depth,
+            "org": s.org.value if s.org is not None else None,
+            "via_global_buffer": (bool(s.placement.via_global_buffer)
+                                  if s.placement is not None else None),
+            "latency_cycles": s.cost.latency_cycles,
+            "dram_bytes": s.cost.dram_bytes,
+            "congested": s.cost.congested,
+            "branches": [list(b) for b in s.branches],
+            "edges": [list(e) for e in s.edges],
+        } for s in plan.segments],
+    }
+
+
+def _plans_differ(got: dict, want: dict):
+    """First difference of two snapshots: structure exact, floats within
+    ``PLAN_RTOL``; None when they agree."""
+    def close(a, b):
+        return abs(a - b) <= PLAN_RTOL * max(abs(a), abs(b))
+    if got["topology"] != want["topology"]:
+        return "topology"
+    if len(got["segments"]) != len(want["segments"]):
+        return (f"{len(got['segments'])} segments, not "
+                f"{len(want['segments'])}")
+    for i, (gs, ws) in enumerate(zip(got["segments"], want["segments"])):
+        for key in ("start", "stop", "depth", "org", "via_global_buffer",
+                    "congested", "branches", "edges"):
+            if gs[key] != ws[key]:
+                return f"segment {i}: {key} {gs[key]!r} != {ws[key]!r}"
+        for key in ("latency_cycles", "dram_bytes"):
+            if not close(gs[key], ws[key]):
+                return f"segment {i}: {key} {gs[key]} != {ws[key]}"
+    for key in ("latency_cycles", "dram_bytes"):
+        if not close(got[key], want[key]):
+            return f"{key} {got[key]} != {want[key]}"
+    return None
+
+
+def _cold_planner_caches():
+    from repro_torch.core import flow_batch_cache_clear, get_planner, \
+        span_cache_clear
+    from repro_torch.core import noc, pipeline_model_torch, planner
+    get_planner().clear_cache()
+    span_cache_clear()
+    planner._pair_traffic.cache_clear()
+    planner._cached_place.cache_clear()
+    flow_batch_cache_clear()
+    noc.route_incidence_cache_clear()
+    pipeline_model_torch.price_cache_clear()
+
+
+def phase_planner():
+    """Plan the 8 XR-bench tasks on the card; record the real batches."""
+    import torch
+    from repro_torch.configs.xrbench import all_tasks
+    from repro_torch.core import (PAPER_HW, PlanRequest, Topology,
+                                  get_planner, pipeline_model_torch)
+    from repro_torch.kernels.price_rows import price_rows
+    tasks = all_tasks()
+    golden = json.loads(GOLDEN.read_text())
+    planner = get_planner()
+
+    # record every torch-priced group (edge bucket, rows) of this run,
+    # and the host time spent in price_rows (packing, copies, launches)
+    recorded = []
+    real = pipeline_model_torch.price_rows
+    in_pricing = [0.0]
+
+    def recording(rows, device=None):
+        groups = {}
+        for r in rows:
+            if r.host_cost is None:
+                groups.setdefault(pipeline_model_torch._bucket_edges(
+                    r.n_edges), []).append(r)
+        recorded.extend(sorted(groups.items(), key=lambda kv: kv[0]))
+        t0 = time.perf_counter()
+        out = real(rows, device=device)
+        in_pricing[0] += time.perf_counter() - t0
+        return out
+
+    plans, wall = {"torch": {}, "numpy": {}}, {"torch": {}, "numpy": {}}
+    for engine in ("torch", "numpy"):
+        _cold_planner_caches()
+        if engine == "torch":
+            pipeline_model_torch.price_rows = recording
+            price_rows.launches = 0
+        try:
+            for name in sorted(tasks):
+                t0 = time.perf_counter()
+                plans[engine][name] = planner.plan(PlanRequest(
+                    tasks[name], hw=PAPER_HW, topology=Topology.AMP,
+                    engine=engine))
+                torch.cuda.synchronize()
+                wall[engine][name] = time.perf_counter() - t0
+        finally:
+            pipeline_model_torch.price_rows = real
+        if engine == "torch":
+            launches = price_rows.launches
+            hits, misses, _, _ = pipeline_model_torch.price_cache_info()
+    groups = hits + misses
+    check(launches > 0 and launches == groups == len(recorded),
+          f"price_rows launched {launches} times for {groups} torch-priced "
+          f"groups ({len(recorded)} recorded)")
+    for name in sorted(tasks):
+        snap = _snapshot_plan(plans["torch"][name])
+        for other, want in (("numpy engine", _snapshot_plan(
+                plans["numpy"][name])), ("golden file", golden[name])):
+            diff = _plans_differ(snap, want)
+            check(diff is None, f"plan of {name}, torch engine vs {other}: "
+                                f"{diff}")
+        print(f"plan {name}: {len(snap['segments'])} segments, latency "
+              f"{snap['latency_cycles']:.6g} cycles; wall torch "
+              f"{wall['torch'][name]:.3f} s, numpy "
+              f"{wall['numpy'][name]:.3f} s")
+    rows = sum(len(r) for _, r in recorded)
+    sizes = {}
+    for e_pad, rs in recorded:
+        sizes[e_pad] = sizes.get(e_pad, 0) + len(rs)
+    out = {"tasks": len(tasks), "launches": launches, "groups": groups,
+           "rows": rows, "rows_by_e_pad": sizes,
+           "largest_batch": max(len(r) for _, r in recorded),
+           "price_rows_s": in_pricing[0],
+           "total_wall_s": {e: sum(w.values()) for e, w in wall.items()},
+           "wall_s": wall, "plans_equal_numpy_and_golden": True}
+    print("plan " + json.dumps({k: v for k, v in out.items()
+                                if k != "wall_s"}))
+    return out, plans["torch"], recorded
+
+
+def phase_price_rows(recorded, floor_ms: float):
+    """The pricing kernel against its plain version on this run's real
+    batches: the largest of each edge bucket, and every row of the widest
+    bucket in one batch."""
+    best = {}
+    for e_pad, rows in recorded:
+        if e_pad not in best or len(rows) > len(best[e_pad]):
+            best[e_pad] = rows
+    out = [check_price_rows(f"largest E_pad={e}", rows, e, floor_ms)
+           for e, rows in sorted(best.items())]
+    e_max = max(best)
+    wide = [r for e, rows in recorded if e == e_max for r in rows]
+    out.append(check_price_rows(f"all E_pad={e_max}", wide, e_max,
+                                floor_ms))
+    return out
+
+
+def phase_simulate(plans):
+    """Every segment of the torch-engine plans through the torch
+    simulator engine on the card, against the numpy engine (each timed
+    from cold simulator caches)."""
+    import numpy as np
+    from repro_torch.core import (PAPER_HW, Topology, sim_cache_clear,
+                                  simulate_segment)
+    from repro_torch.kernels.maxplus_scan import maxplus_chunked, \
+        maxplus_scan
+    segs = [(name, i, seg) for name in sorted(plans)
+            for i, seg in enumerate(plans[name].segments)]
+    sim_cache_clear()
+    maxplus_chunked.launches = 0
+    simulate_segment.maxplus_scans = 0
+    t0 = time.perf_counter()
+    sims = [simulate_segment(seg, PAPER_HW, Topology.AMP, engine="torch")
+            for _, _, seg in segs]
+    dt = time.perf_counter() - t0
+    launches = maxplus_chunked.launches
+    scans = simulate_segment.maxplus_scans
+    check(launches > 0 and launches == scans,
+          f"maxplus_chunked launched {launches} times for {scans} scans")
+    sim_cache_clear()
+    t0 = time.perf_counter()
+    worst = 0.0
+    for (name, i, seg), st in zip(segs, sims):
+        sn = simulate_segment(seg, PAPER_HW, Topology.AMP, engine="numpy")
+        check(st.link_loads == sn.link_loads,
+              f"simulate {name} segment {i}: link loads differ")
+        tol = SIM_RTOL_BIG if sn.latency_cycles > 2 ** 24 else SIM_RTOL
+        rel = (abs(st.latency_cycles - sn.latency_cycles)
+               / max(abs(sn.latency_cycles), 1e-300))
+        worst = max(worst, rel)
+        check(rel <= tol, f"simulate {name} segment {i}: latency "
+                          f"{st.latency_cycles} vs {sn.latency_cycles}")
+    numpy_s = time.perf_counter() - t0
+    # what one scan costs the simulator: numpy in, copies, launch, numpy
+    # out, at the path's largest shape
+    u = np.cumsum(np.full(512, 7.0))
+    s = np.full(512, 3.0)
+    maxplus_scan(u, s, engine="torch")
+    n_calls = 200
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        maxplus_scan(u, s, engine="torch")
+    scan_call_ms = (time.perf_counter() - t0) / n_calls * 1e3
+    out = {"segments": len(segs), "scans": scans, "launches": launches,
+           "torch_s": dt, "numpy_s": numpy_s, "scan_call_ms": scan_call_ms,
+           "max_rel_latency_diff": worst,
+           "over_2pow24": sum(s.latency_cycles > 2 ** 24 for s in sims)}
+    print("simulate " + json.dumps(out))
+    return out
 
 
 def phase_serve():
@@ -335,8 +728,11 @@ def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
-    rows = phase_kernels()
+    rows, mp_rows, mp_exact, floor_ms = phase_kernels()
     serve = phase_serve()
+    plan, plans, recorded = phase_planner()
+    pr_rows = phase_price_rows(recorded, floor_ms)
+    sim = phase_simulate(plans)
     small = phase_small_reference()
 
     main_row = next(r for r in rows
@@ -350,8 +746,30 @@ def main() -> None:
         "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"]}]
+    # the planner's kernels: no single PyTorch call computes either
+    # function (a max-plus scan; the Fig. 3 recurrence), so library_ms is
+    # null; their main rows are the simulator's one-row T = 512 scan and
+    # the planning run's largest batch at E_pad = 8 (the commonest bucket)
+    mp = next(r for r in mp_rows if r["shape"] == "path")
+    pr = max(pr_rows, key=lambda r: (r["E_pad"] == 8, r["B"]))
+    for name, src, ref, launches, r in (
+            ("maxplus_chunked", "maxplus_scan.cu",
+             "src/repro/kernels/maxplus_scan.py:129", sim["launches"], mp),
+            ("price_rows", "price_rows.cu",
+             "src/repro/core/pipeline_model_jax.py:278", plan["launches"],
+             pr)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": ref, "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
     record = {"card": smi, "kernels": kernels, "fused_mlp_rows": rows,
-              "serve": serve, "small_reference": small,
+              "maxplus_rows": mp_rows, "maxplus_exact": mp_exact,
+              "price_rows_rows": pr_rows, "launch_floor_ms": floor_ms,
+              "serve": serve, "plan": plan, "simulate": sim,
+              "small_reference": small,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,0 +1,537 @@
+"""Declarative planning API: requests, objectives and the strategy registry.
+
+The paper's central claim is that the *right* depth, granularity and
+spatial organization differ per workload — planning is therefore a query
+with an objective, not a function call with a strategy string.  This
+module defines the three request-side objects of that query:
+
+  * ``PlanRequest``  — a frozen, hashable description of one planning
+    problem: graph (keyed by its structural fingerprint), hardware,
+    topology, strategy, objective, constraints, ``sim_check`` and the
+    simulation burst budget.  It is the *single* cache key of the
+    ``Planner`` facade and the single argument to ``Planner.plan``.
+  * ``Objective`` / ``Constraint`` — how to pick a point from the cut-point
+    DP's Pareto frontier: lexicographic (latency-first with a relative
+    slack band — the historical default — or DRAM-first, energy-first...)
+    or weighted scalarization, optionally under bound constraints
+    ("min DRAM s.t. latency <= 1.1x best").
+  * the strategy registry — ``register_strategy()`` replaces the two
+    hard-coded tables (``planner.STRATEGIES`` and the facade's private
+    ``_STRATEGY_TABLE``); third-party strategies (and test fakes) plug in
+    with declared capabilities (topology-taking, sim_check, objective).
+
+The plan-side counterpart (``PlanArtifact`` / ``PlanStore`` — lossless
+JSON persistence of ``PlanResult``) lives in ``artifact.py``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+from typing import (Any, Callable, Dict, List, Mapping, Optional,
+                    Sequence, Tuple, TypeVar, Union)
+
+from .graph import Graph
+from .hwconfig import HWConfig, PAPER_HW
+from .noc import Topology
+
+#: default number of bursts simulated per pair before extrapolating the
+#: steady state at the measured tail rate (the max-plus engine made the
+#: per-burst cost sublinear, so the default prefix is 8x the scalar
+#: engine's old 64).  Lives here — not in ``simulator`` — so the request
+#: layer can default ``max_bursts`` without importing the simulator;
+#: ``simulator`` re-exports it.
+DEFAULT_MAX_BURSTS = 512
+
+#: the metrics an objective may rank or constrain.  They are exactly the
+#: ``PlanResult`` totals (sums of the per-segment ``SegmentCost`` fields).
+METRICS = ("latency_cycles", "dram_bytes", "energy")
+
+
+class PlanAPIDeprecationWarning(DeprecationWarning):
+    """Raised (as a warning) by the legacy positional planning API.
+
+    A dedicated subclass so CI can escalate *our* deprecations to errors
+    (``-W error::repro_torch.core.plan_api.PlanAPIDeprecationWarning``) without
+    tripping over third-party DeprecationWarnings.
+    """
+
+
+# ---------------------------------------------------------------------------
+# objectives and constraints
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Term:
+    """One lexicographic objective level: minimize ``metric``, keeping
+    every candidate within ``(1 + rel_slack)`` of the level's best in
+    play for the next level (slack 0.0 = exact minimum)."""
+    metric: str
+    rel_slack: float = 0.0
+
+    def __post_init__(self) -> None:
+        if self.metric not in METRICS:
+            raise ValueError(f"unknown metric {self.metric!r}; "
+                             f"one of {METRICS}")
+        if self.rel_slack < 0.0:
+            raise ValueError("rel_slack must be >= 0")
+
+
+@dataclasses.dataclass(frozen=True)
+class Constraint:
+    """A bound on one metric, applied before the objective ranks.
+
+    ``max_value`` bounds the metric absolutely; ``max_ratio_to_best``
+    bounds it relative to the best value among the candidates under
+    consideration (the frontier) — e.g. ``Constraint("latency_cycles",
+    max_ratio_to_best=1.1)`` keeps only plans within 10% of the fastest.
+    If no candidate satisfies every constraint the selection falls back
+    to the candidate closest to feasibility on the first violated
+    constraint (best-effort, deterministic) rather than failing the plan.
+    """
+    metric: str
+    max_value: Optional[float] = None
+    max_ratio_to_best: Optional[float] = None
+
+    def __post_init__(self) -> None:
+        if self.metric not in METRICS:
+            raise ValueError(f"unknown metric {self.metric!r}; "
+                             f"one of {METRICS}")
+        if self.max_value is None and self.max_ratio_to_best is None:
+            raise ValueError("constraint needs max_value or "
+                             "max_ratio_to_best")
+
+
+C = TypeVar("C")
+
+
+@dataclasses.dataclass(frozen=True)
+class Objective:
+    """How to choose one candidate from a (latency, DRAM, energy) set.
+
+    ``kind="lex"``: minimize ``terms`` in order; every level keeps the
+    candidates within its ``rel_slack`` band, and the final pick breaks
+    ties by the last term's metric, then the earlier terms' metrics in
+    order.  The default objective — ``latency_first()`` — reproduces the
+    historical hard-coded rule bit for bit: latency first, and among
+    candidates within 25% of the best latency the lowest DRAM traffic.
+
+    ``kind="weighted"``: minimize ``sum(w_m * metric_m)`` over
+    ``weights``; ties break by (latency, DRAM).
+    """
+    kind: str = "lex"
+    terms: Tuple[Term, ...] = ()
+    weights: Tuple[Tuple[str, float], ...] = ()
+
+    def __post_init__(self) -> None:
+        if self.kind == "lex":
+            if not self.terms:
+                raise ValueError("lexicographic objective needs terms")
+        elif self.kind == "weighted":
+            if not self.weights:
+                raise ValueError("weighted objective needs weights")
+            for m, _ in self.weights:
+                if m not in METRICS:
+                    raise ValueError(f"unknown metric {m!r}")
+        else:
+            raise ValueError(f"unknown objective kind {self.kind!r}")
+
+    # -- constructors ---------------------------------------------------------
+    @staticmethod
+    def lexicographic(
+            *levels: Union[str, Tuple[str, float]]) -> "Objective":
+        """``Objective.lexicographic(("latency_cycles", 0.25),
+        "dram_bytes")`` — each level a metric name or (metric, slack)."""
+        terms = tuple(Term(lv) if isinstance(lv, str) else Term(*lv)
+                      for lv in levels)
+        return Objective(kind="lex", terms=terms)
+
+    @staticmethod
+    def weighted(**weights: float) -> "Objective":
+        return Objective(kind="weighted", weights=tuple(sorted(
+            (m, float(w)) for m, w in weights.items())))
+
+    # -- selection ------------------------------------------------------------
+    def _key_metrics(self) -> Tuple[str, ...]:
+        """Metric order of the final deterministic tie-break."""
+        if self.kind == "weighted":
+            return ("latency_cycles", "dram_bytes")
+        names = [t.metric for t in self.terms]
+        return tuple([names[-1]] + names[:-1])
+
+    def select(self, cands: Sequence[C],
+               metrics: Sequence[Mapping[str, float]],
+               constraints: Sequence[Constraint] = ()) -> C:
+        """Pick one candidate; ``metrics[i]`` carries candidate i's
+        metric values.  Deterministic: ties resolve to the earliest
+        candidate in input order."""
+        if not cands:
+            raise ValueError("no candidates to select from")
+        idx = list(range(len(cands)))
+        idx = _apply_constraints(idx, metrics, constraints)
+        if self.kind == "weighted":
+            w = dict(self.weights)
+            return cands[min(idx, key=lambda i: (
+                sum(w.get(m, 0.0) * metrics[i][m] for m in METRICS),
+                metrics[i]["latency_cycles"], metrics[i]["dram_bytes"]))]
+        for term in self.terms[:-1]:
+            best = min(metrics[i][term.metric] for i in idx)
+            idx = [i for i in idx
+                   if metrics[i][term.metric] <= best * (1.0 + term.rel_slack)]
+        order = self._key_metrics()
+        return cands[min(idx, key=lambda i: tuple(metrics[i][m]
+                                                  for m in order))]
+
+
+def _apply_constraints(idx: List[int],
+                       metrics: Sequence[Mapping[str, float]],
+                       constraints: Sequence[Constraint]) -> List[int]:
+    for c in constraints:
+        bound = c.max_value if c.max_value is not None else float("inf")
+        if c.max_ratio_to_best is not None:
+            best = min(metrics[i][c.metric] for i in idx)
+            bound = min(bound, best * c.max_ratio_to_best)
+        kept = [i for i in idx if metrics[i][c.metric] <= bound]
+        if not kept:   # infeasible: best-effort — closest to the bound
+            kept = [min(idx, key=lambda i: metrics[i][c.metric])]
+        idx = kept
+    return idx
+
+
+def latency_first(slack: float = 0.25) -> Objective:
+    """The historical selection rule: latency first; among candidates
+    within ``slack`` of the best latency, the lowest DRAM traffic
+    (the paper optimizes both performance and energy — Figs. 13-14)."""
+    return Objective.lexicographic(("latency_cycles", slack), "dram_bytes")
+
+
+def min_dram() -> Objective:
+    """Minimize DRAM traffic outright; latency breaks ties."""
+    return Objective.lexicographic("dram_bytes", "latency_cycles")
+
+
+def min_energy() -> Objective:
+    """Minimize total energy; latency breaks ties."""
+    return Objective.lexicographic("energy", "latency_cycles")
+
+
+#: the default objective — bit-identical to the pre-API hard-coded rule,
+#: which is what keeps the golden latency-first plans unchanged.
+DEFAULT_OBJECTIVE = latency_first()
+
+
+# ---------------------------------------------------------------------------
+# the strategy registry
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class StrategySpec:
+    """One registered planning strategy and its declared capabilities."""
+    name: str
+    fn: Callable[..., object]
+    default_topology: Topology
+    takes_topology: bool = True
+    supports_sim_check: bool = False
+    supports_objective: bool = False
+    supports_engine: bool = False
+
+    def plan(self, request: "PlanRequest") -> Any:
+        """Invoke the strategy function with exactly the arguments its
+        declared capabilities admit."""
+        args = [request.graph, request.hw]
+        if self.takes_topology:
+            args.append(request.topology)
+        kwargs: Dict[str, object] = {}
+        if self.supports_objective:
+            kwargs["objective"] = request.objective
+            kwargs["constraints"] = request.constraints
+        if self.supports_sim_check:
+            kwargs["sim_check"] = request.sim_check
+            if request.max_bursts is not None:
+                kwargs["max_bursts"] = request.max_bursts
+        if self.supports_engine:
+            kwargs["engine"] = request.engine
+            kwargs["device"] = request.device
+        return self.fn(*args, **kwargs)
+
+
+_STRATEGY_REGISTRY: Dict[str, StrategySpec] = {}
+
+
+def register_strategy(name: str, fn: Callable[..., object],
+                      default_topology: Topology,
+                      takes_topology: bool = True,
+                      supports_sim_check: bool = False,
+                      supports_objective: bool = False,
+                      supports_engine: bool = False,
+                      overwrite: bool = False) -> StrategySpec:
+    """Register a planning strategy under ``name``.
+
+    ``fn(graph, hw[, topology][, objective=, constraints=][, sim_check=,
+    max_bursts=][, engine=, device=])`` must return a ``PlanResult``; the
+    keyword groups are passed only when the matching ``supports_*``
+    capability is declared.  Third-party strategies registered here are
+    first-class citizens of ``PlanRequest``/``Planner`` — same cache, same
+    validation path.
+    """
+    if name in _STRATEGY_REGISTRY and not overwrite:
+        raise ValueError(f"strategy {name!r} already registered "
+                         "(pass overwrite=True to replace)")
+    spec = StrategySpec(name, fn, default_topology, takes_topology,
+                        supports_sim_check, supports_objective,
+                        supports_engine)
+    _STRATEGY_REGISTRY[name] = spec
+    return spec
+
+
+def unregister_strategy(name: str) -> None:
+    _STRATEGY_REGISTRY.pop(name, None)
+
+
+def get_strategy(name: str) -> StrategySpec:
+    try:
+        return _STRATEGY_REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown strategy {name!r}; "
+                         f"one of {sorted(_STRATEGY_REGISTRY)}") from None
+
+
+def strategy_names() -> Tuple[str, ...]:
+    return tuple(sorted(_STRATEGY_REGISTRY))
+
+
+# ---------------------------------------------------------------------------
+# cache registry (public hook replacing the facade's private reach-ins)
+# ---------------------------------------------------------------------------
+
+#: cache name -> zero-arg provider returning (hits, misses, maxsize,
+#: currsize).  ``planner.py`` registers its memoization layers here and
+#: ``Planner.cache_info_all`` consumes the registry, so strategy plugins
+#: can expose their own caches alongside the built-ins.
+_CACHE_REGISTRY: Dict[str, Callable[[], Tuple[int, int, int, int]]] = {}
+
+
+def register_cache(name: str,
+                   info_fn: Callable[[], Tuple[int, int, int, int]],
+                   overwrite: bool = False) -> None:
+    if name in _CACHE_REGISTRY and not overwrite:
+        raise ValueError(f"cache {name!r} already registered")
+    _CACHE_REGISTRY[name] = info_fn
+
+
+def unregister_cache(name: str) -> None:
+    _CACHE_REGISTRY.pop(name, None)
+
+
+def cache_registry() -> Dict[str, Callable[[], Tuple[int, int, int, int]]]:
+    """A snapshot of every registered cache provider."""
+    return dict(_CACHE_REGISTRY)
+
+
+# ---------------------------------------------------------------------------
+# the request
+# ---------------------------------------------------------------------------
+
+
+def torch_engine_available() -> bool:
+    """True when the torch pricing engine can be used (torch imports).
+    It does not look for a card: a request priced on ``cuda`` without one
+    raises at plan time.  The import is attempted lazily — callers that
+    never touch ``engine="auto"|"torch"`` never pay it."""
+    try:
+        import torch  # noqa: F401
+    except Exception:               # noqa: BLE001 - any import failure
+        return False
+    return True
+
+
+ENGINES = ("auto", "numpy", "torch")
+
+
+def graph_fingerprint(g: Graph) -> Tuple[Any, ...]:
+    """Stable, hashable identity of a graph's structure and shapes.
+
+    ``Graph`` is mutable (and ``Op.dims`` is a dict), so plans cannot key
+    on the object itself; the fingerprint captures everything the planner
+    reads: op names, kinds, dimension tuples, wiring and strides.
+    """
+    return (g.name, tuple(
+        (op.name, op.kind.value, tuple(sorted(op.dims.items())),
+         op.inputs, op.stride)
+        for op in g.ops))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PlanRequest:
+    """One planning problem, frozen at construction.
+
+    Identity (hash/equality, and therefore every cache from the facade's
+    LRU to the on-disk ``PlanStore``) is the ``key`` tuple: the graph's
+    structural *fingerprint* — taken when the request is built — plus
+    every knob that can change the resulting plan.  The live ``graph``
+    object rides along for the strategy function but does not take part
+    in identity; mutating it after constructing a request is a caller
+    bug (build a new request instead).
+
+    ``topology=None`` resolves to the strategy's registered default at
+    construction, and capability violations (``sim_check`` or a
+    non-default objective against a strategy that cannot honor them)
+    raise immediately rather than at plan time.
+
+    ``max_bursts=None`` means "the simulator default"
+    (``DEFAULT_MAX_BURSTS``) wherever the request drives a simulation
+    (``sim_check`` re-ranking, ``Planner.validate``).
+
+    ``engine`` selects the candidate pricer for engine-capable strategies
+    (``supports_engine``): ``"auto"`` (default) resolves at construction
+    to ``"torch"`` when torch is importable, else ``"numpy"``; the
+    resolved name is what identity (``key``, ``cache_token``) and
+    serialization carry, so a stored plan records the engine that priced
+    it.  An explicit ``"torch"`` raises when torch is missing; any
+    explicit non-auto engine raises for strategies without the
+    capability.
+
+    ``device`` is where the torch engine prices (``None`` = ``cuda``;
+    pass ``"cpu"`` to run the kernels' plain versions on the host).  Like
+    the live ``graph`` it is not part of identity or serialization: where
+    a plan is priced must not change it.  Without a card, a ``cuda``
+    request raises at plan time.
+    """
+    graph: Graph
+    hw: HWConfig = PAPER_HW
+    topology: Optional[Topology] = None
+    strategy: str = "pipeorgan"
+    objective: Objective = DEFAULT_OBJECTIVE
+    constraints: Tuple[Constraint, ...] = ()
+    sim_check: bool = False
+    max_bursts: Optional[int] = None
+    engine: str = "auto"
+    device: Optional[str] = None
+
+    def __post_init__(self) -> None:
+        spec = get_strategy(self.strategy)
+        if self.topology is None:
+            object.__setattr__(self, "topology", spec.default_topology)
+        if not isinstance(self.constraints, tuple):
+            object.__setattr__(self, "constraints",
+                               tuple(self.constraints))
+        if self.sim_check and not spec.supports_sim_check:
+            raise ValueError(
+                f"strategy {self.strategy!r} has no Pareto frontier to "
+                "sim_check-re-rank (supports_sim_check=False)")
+        nondefault = (self.objective != DEFAULT_OBJECTIVE
+                      or bool(self.constraints))
+        if nondefault and not spec.supports_objective:
+            raise ValueError(
+                f"strategy {self.strategy!r} does not support custom "
+                "objectives/constraints (supports_objective=False)")
+        if self.engine not in ENGINES:
+            raise ValueError(f"unknown engine {self.engine!r}; "
+                             f"one of {ENGINES}")
+        if spec.supports_engine:
+            if self.engine == "torch" and not torch_engine_available():
+                raise ValueError(
+                    "engine='torch' requested but torch cannot be "
+                    "imported; use engine='numpy' or 'auto'")
+            if self.engine == "auto":
+                resolved = "torch" if torch_engine_available() else "numpy"
+                object.__setattr__(self, "engine", resolved)
+        elif self.engine != "auto":
+            raise ValueError(
+                f"strategy {self.strategy!r} does not support engine "
+                "selection (supports_engine=False)")
+        object.__setattr__(self, "_fingerprint",
+                           graph_fingerprint(self.graph))
+
+    # -- identity -------------------------------------------------------------
+    @property
+    def fingerprint(self) -> Tuple[Any, ...]:
+        return self._fingerprint           # type: ignore[attr-defined]
+
+    @property
+    def plan_max_bursts(self) -> Optional[int]:
+        """The burst budget *as far as the plan is concerned*.
+
+        ``max_bursts`` changes the resulting plan only under ``sim_check``
+        (it is the re-rank's simulation budget); for plain analytical
+        planning it merely drives ``Planner.validate``, so plan identity
+        normalizes it out — a validate-with-custom-budget request hits
+        the same cache entry as the served plan.
+        """
+        return self.max_bursts if self.sim_check else None
+
+    @property
+    def key(self) -> Tuple[Any, ...]:
+        """The single cache key: everything that determines the plan."""
+        return (self.fingerprint, self.hw, self.topology, self.strategy,
+                self.objective, self.constraints, self.sim_check,
+                self.plan_max_bursts, self.engine)
+
+    def __hash__(self) -> int:
+        return hash(self.key)
+
+    def __eq__(self, other: object) -> bool:
+        if not isinstance(other, PlanRequest):
+            return NotImplemented
+        return self.key == other.key
+
+    # -- serialization (the PlanStore's on-disk identity) ---------------------
+    def to_json_dict(self) -> Dict[str, Any]:
+        """Canonical JSON form of the request *identity* (no live graph)."""
+        return {
+            "graph_name": self.graph.name,
+            "fingerprint": _jsonable(self.fingerprint),
+            "hw": dataclasses.asdict(self.hw),
+            "topology": self.topology.value,
+            "strategy": self.strategy,
+            "objective": _objective_to_dict(self.objective),
+            "constraints": [dataclasses.asdict(c)
+                            for c in self.constraints],
+            "sim_check": self.sim_check,
+            "max_bursts": self.plan_max_bursts,
+            "engine": self.engine,
+        }
+
+    def cache_token(self) -> str:
+        """Content hash of the request identity — the ``PlanStore`` file
+        key, stable across processes (unlike ``hash()``)."""
+        return content_token(self.to_json_dict())
+
+
+def content_token(doc: Any) -> str:
+    """Cross-process content address of any JSON-able document (tuples
+    allowed — canonicalized to lists): sha256 of the canonical JSON.
+    The one hashing rule shared by every on-disk cache key (the
+    ``PlanStore``'s request tokens, the span shelf's span tokens)."""
+    blob = json.dumps(_jsonable(doc), sort_keys=True,
+                      separators=(",", ":"))
+    return hashlib.sha256(blob.encode()).hexdigest()
+
+
+def _jsonable(obj: Any) -> Any:
+    if isinstance(obj, (tuple, list)):
+        return [_jsonable(x) for x in obj]
+    if isinstance(obj, dict):
+        return {k: _jsonable(v) for k, v in obj.items()}
+    return obj
+
+
+def _objective_to_dict(o: Objective) -> Dict[str, Any]:
+    return {
+        "kind": o.kind,
+        "terms": [[t.metric, t.rel_slack] for t in o.terms],
+        "weights": [[m, w] for m, w in o.weights],
+    }
+
+
+def objective_from_dict(d: Mapping[str, Any]) -> Objective:
+    return Objective(kind=d["kind"],
+                     terms=tuple(Term(m, s) for m, s in d["terms"]),
+                     weights=tuple((m, w) for m, w in d["weights"]))
+
+
+def constraint_from_dict(d: Mapping[str, Any]) -> Constraint:
+    return Constraint(metric=d["metric"], max_value=d["max_value"],
+                      max_ratio_to_best=d["max_ratio_to_best"])

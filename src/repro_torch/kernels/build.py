@@ -24,6 +24,15 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: flags of one source only.  ``price_rows`` must round every float64
+#: operation as the host does (the DP compares its latencies exactly), so
+#: nvcc may not contract ``a * b + c`` into a fused multiply-add there.
+EXTRA_FLAGS = {"price_rows": ("-fmad=false",)}
+
+
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
 
 @dataclasses.dataclass
 class BuildResult:
@@ -47,7 +56,7 @@ def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     if not src.exists():
         raise FileNotFoundError(src)
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags(name)).encode())
     for p in sorted(CSRC.glob("*.cuh")) + [src]:
         h.update(p.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -66,7 +75,8 @@ def build(names: Iterable[str]) -> List[BuildResult]:
             results.append(BuildResult(name, path, 0.0, ""))
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *flags(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running.append((name, path, tmp, proc))

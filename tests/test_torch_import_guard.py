@@ -31,7 +31,12 @@ def test_port_imports_no_jax_and_no_reference():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for mod in ("repro_torch.kernels.fused_mlp", "repro_torch.models.layers",
-                "repro_torch.runtime.serve_loop", "repro_torch.launch.serve"):
+                "repro_torch.runtime.serve_loop", "repro_torch.launch.serve",
+                "repro_torch.core.planner", "repro_torch.core.simulator",
+                "repro_torch.kernels.maxplus_scan",
+                "repro_torch.kernels.price_rows",
+                "repro_torch.core.pipeline_model_torch",
+                "repro_torch.configs.xrbench"):
         assert mod in res["imported"]
 
 
