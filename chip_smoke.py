@@ -10,25 +10,30 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
 1. device: requires CUDA; prints versions, the card's name and power
    limit, and turns TF32 off for float32 products;
 2. build: compiles every kernel (fused_mlp, maxplus_scan, price_rows,
-   rwkv6_scan, rglru_scan) with ``nvcc``, one process per source, all
-   started together;
+   rwkv6_scan, rglru_scan, flash_attention) with ``nvcc``, one process
+   per source, all started together;
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch
    version at the main paths' shapes, with times, the bound, a PyTorch
    yardstick (``library_ms``, where one call computes the function) and,
-   for the launch- or latency-bound kernels, the launch floor and the
+   for the launch- or latency-bound kernels and flash attention, the
    kernel's device time by the profiler;
 4. models, one on the card at a time, each at full width with random
-   bf16 weights from a seed: qwen2.5-3b, rwkv6-1.6b and recurrentgemma-2b
-   each answer 6 requests through ``ServeEngine`` with the kernels on;
-   the launch counts of each run must show every kernel of its path once
-   per layer that runs it and tick (fused_mlp, wkv6, rglru_chunked) and
-   no other kernel; one decode step is then compared with the plain path
-   from the same cache; the two recurrent archs also run ``forward`` on
-   a (2, 512) prompt, each layer's output with the kernels is held
-   against the plain path's from the same input, and the logits against
-   the plain path with its recurrence in float64; their kernel-vs-plain
-   comparisons run the same weights in float32 (these random-weight nets
-   amplify any difference from layer to layer, see ``_float32_twin``);
+   bf16 weights from a seed: qwen2.5-3b, rwkv6-1.6b, recurrentgemma-2b
+   and gemma3-4b each answer 6 requests through ``ServeEngine`` with the
+   kernels on; the launch counts of each run must show every kernel of
+   its path once per layer that runs it and tick (fused_mlp, wkv6,
+   rglru_chunked) and no other kernel (flash attention runs only without
+   a cache, so never in decode); one decode step is then compared with
+   the plain path from the same cache; the two recurrent archs also run
+   ``forward`` on a (2, 512) prompt, each layer's output with the
+   kernels is held against the plain path's from the same input, and the
+   logits against the plain path with its recurrence in float64; their
+   kernel-vs-plain comparisons run the same weights in float32 (these
+   random-weight nets amplify any difference from layer to layer, see
+   ``_float32_twin``); gemma3-4b runs ``forward`` on a (1, 8192) prompt,
+   the reference's chunked-attention length, with one flash launch per
+   layer, each layer held against the plain path (``_sdpa_chunked``) in
+   float32 and the bf16 logits against the plain path's;
 5. plan: the 8 XR-bench tasks on ``PAPER_HW``/AMP through
    ``get_planner().plan(PlanRequest(g, engine="torch"))`` on ``cuda``;
    every candidate batch goes through the CUDA ``price_rows`` (one
@@ -38,9 +43,10 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
 6. simulate: every segment of those plans through
    ``simulate_segment(engine="torch")``, whose max-plus scans all go
    through the CUDA ``maxplus_chunked``, against ``engine="numpy"``;
-7. small reference: the three smoke configs in float32 on the card,
-   decode logits against prefill logits at every position (the hybrid
-   past its local attention's ring-buffer wrap).
+7. small reference: the four smoke configs in float32 on the card,
+   decode logits (plain attention) against prefill logits (the flash
+   kernel) at every position (the hybrid past its local attention's
+   ring-buffer wrap, gemma3-4b past its local window).
 
 Any failure raises and exits non-zero.  The second-last line is the JSON
 kernel table; the last line is the device record.  The full results go
@@ -115,6 +121,23 @@ WKV6_SHAPES = [("decode", 128, 1, True, None),
 RGLRU_SHAPES = [("decode", 4, 1, True), ("prefill", 2, 512, False),
                 ("prefill-h0", 2, 512, True), ("ragged", 3, 77, True)]
 
+#: flash kernel vs plain, the reference suite's tolerances
+#: (tests/test_kernels.py): float32 differs in summation order only;
+#: bf16 also where the output rounds (the plain version rounds once, as
+#: the kernel does, but from another fp32 sum)
+FLASH_TOL = {"bfloat16": 3e-2, "float32": 3e-4}
+#: (label, B, S, T, H, Hkv, hd, causal, window): gemma3-4b's forward at
+#: (1, 8192) and (2, 2048), local (window 1024) and global; a ragged S;
+#: recurrentgemma-2b's forward (10 heads, 1 KV head, window 2048); and
+#: whisper's cross-attention shape (not causal, T != S)
+FLASH_SHAPES = [("local-8192", 1, 8192, 8192, 8, 4, 256, True, 1024),
+                ("global-8192", 1, 8192, 8192, 8, 4, 256, True, 0),
+                ("local-2x2048", 2, 2048, 2048, 8, 4, 256, True, 1024),
+                ("global-2x2048", 2, 2048, 2048, 8, 4, 256, True, 0),
+                ("ragged-777", 1, 777, 777, 8, 4, 256, True, 0),
+                ("hybrid-2x512", 2, 512, 512, 10, 1, 256, True, 2048),
+                ("cross-128x1500", 1, 128, 1500, 16, 16, 64, False, 0)]
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
@@ -170,7 +193,7 @@ def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     results = build.build(["fused_mlp", "maxplus_scan", "price_rows",
-                           "rwkv6_scan", "rglru_scan"])
+                           "rwkv6_scan", "rglru_scan", "flash_attention"])
     print(f"build: {len(results)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s")
     for r in results:
@@ -446,6 +469,105 @@ def phase_recurrence_kernels(floor_ms: float):
     return wkv, rg
 
 
+def admitted_keys(S: int, T: int, causal: bool, window: int) -> int:
+    """Number of (query, key) pairs the masks admit, summed over rows:
+    row i admits keys lo..hi with hi = min(i, T - 1) (causal) or T - 1,
+    and lo = max(0, i - window + 1) (window > 0) or 0."""
+    import numpy as np
+    i = np.arange(S, dtype=np.int64)
+    hi = np.minimum(i, T - 1) if causal else np.full(S, T - 1)
+    lo = (np.maximum(0, i - window + 1) if window > 0
+          else np.zeros(S, np.int64))
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _top_kernel(fn) -> str:
+    """Name of the device kernel that takes most of one call of ``fn``,
+    by ``torch.profiler`` (the backend a library call ran)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            times[e.name] = times.get(e.name, 0) + e.time_range.elapsed_us()
+    return max(times, key=times.get)[:120] if times else "not measured"
+
+
+def check_flash(label: str, B: int, S: int, T: int, H: int, Hkv: int,
+                hd: int, causal: bool, window: int, dtype_name: str):
+    """One shape: the flash kernel (model layout, ``attention_op``)
+    against its plain version, with times, the bound and
+    ``scaled_dot_product_attention`` as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (_mask, attention_op,
+                                                     attention_op_ref)
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(B * 100000 + S + T + hd)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = rnd(B, S, H, hd), rnd(B, T, Hkv, hd), rnd(B, T, Hkv, hd)
+    out = attention_op(q, k, v, causal=causal, window=window)
+    exp = attention_op_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    check(out.dtype == dtype and out.shape == (B, S, H, hd),
+          f"flash_attention {label}: {out.dtype} {tuple(out.shape)}")
+    tol = FLASH_TOL[dtype_name]
+    err, ok = _norm_err(out.float(), exp.float(), tol)
+    ok = ok and bool(torch.isfinite(out).all())
+    del exp
+    # the yardstick: one PyTorch call, (B, H, S, hd) views, GQA inside
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = (_mask(S, T, causal, window, "cuda") if window > 0 else None)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+
+    lib_err = float((library().transpose(1, 2).float() - out.float())
+                    .abs().max())
+    sync = torch.cuda.synchronize
+    size = torch.finfo(dtype).bits // 8
+    nbytes = (2 * B * S * H + 2 * B * T * Hkv) * hd * size
+    pairs = admitted_keys(S, T, causal, window)
+    bound_ms, bound_by = _bound(nbytes, 4 * hd * H * B * pairs, dtype_name)
+    row = {"shape": label, "B": B, "S": S, "T": T, "H": H, "Hkv": Hkv,
+           "hd": hd, "causal": causal, "window": window,
+           "dtype": dtype_name, "admitted_pairs_per_head": B * pairs,
+           "max_abs_err": err, "tol": tol, "ok": ok,
+           "ms": time_ms(lambda: attention_op(q, k, v, causal=causal,
+                                              window=window), sync),
+           "device_ms": _us_to_ms(device_us(
+               lambda: attention_op(q, k, v, causal=causal, window=window),
+               "flash_attention_tile_kernel", calls=5)),
+           "plain_ms": time_ms(lambda: attention_op_ref(
+               q, k, v, causal=causal, window=window), sync),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": time_ms(library, sync),
+           "library_kernel": _top_kernel(library),
+           "library_max_abs_err": lib_err}
+    print("flash_attention " + json.dumps(row))
+    check(ok, f"flash_attention {label} {dtype_name}: max err {err:.3g} "
+              f"above tol {tol}")
+    return row
+
+
+def phase_flash():
+    """The flash kernel at the model paths' shapes, bf16 and float32."""
+    return [check_flash(*shape, dt) for shape in FLASH_SHAPES
+            for dt in ("bfloat16", "float32")]
+
+
 def _us_to_ms(us):
     return None if us is None else us / 1e3
 
@@ -704,15 +826,18 @@ def phase_simulate(plans):
 #: the hand-written kernels of the model paths and the name of each
 #: kernel's CUDA function (as the profiler reports it)
 MODEL_KERNELS = {"fused_mlp": "fused_mlp_kernel", "wkv6": "wkv6_kernel",
-                 "rglru_chunked": "rglru_kernel"}
+                 "rglru_chunked": "rglru_kernel",
+                 "flash_attention": "flash_attention_tile_kernel"}
 
 
 def _model_kernels():
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_mlp import fused_mlp
     from repro_torch.kernels.rglru_scan import rglru_chunked
     from repro_torch.kernels.rwkv6_scan import wkv6
     return {"fused_mlp": fused_mlp, "wkv6": wkv6,
-            "rglru_chunked": rglru_chunked}
+            "rglru_chunked": rglru_chunked,
+            "flash_attention": flash_attention}
 
 
 def _zero_counts():
@@ -724,17 +849,24 @@ def _counts():
     return {name: fn.launches for name, fn in _model_kernels().items()}
 
 
-def _per_call(cfg) -> dict:
-    """Launches of each model kernel per decode step or forward: one per
-    layer that runs it.  The hybrid's MLP never takes ``fused_mlp`` (the
-    reference calls ``swiglu`` there without the config)."""
+def _per_call(cfg, forward: bool = False) -> dict:
+    """Launches of each model kernel per decode step (or per ``forward``
+    when ``forward``): one per layer that runs it.  The hybrid's MLP
+    never takes ``fused_mlp`` (the reference calls ``swiglu`` there
+    without the config); flash attention runs on every attention layer
+    of a forward and never in decode."""
+    n = {"fused_mlp": 0, "wkv6": 0, "rglru_chunked": 0, "flash_attention": 0}
     if cfg.arch_kind == "rwkv":
-        return {"fused_mlp": 0, "wkv6": cfg.n_layers, "rglru_chunked": 0}
-    if cfg.arch_kind == "hybrid":
+        n["wkv6"] = cfg.n_layers
+    elif cfg.arch_kind == "hybrid":
         rec = sum(cfg.block_pattern[l % len(cfg.block_pattern)] == "rglru"
                   for l in range(cfg.n_layers))
-        return {"fused_mlp": 0, "wkv6": 0, "rglru_chunked": rec}
-    return {"fused_mlp": cfg.n_layers, "wkv6": 0, "rglru_chunked": 0}
+        n["rglru_chunked"] = rec
+        n["flash_attention"] = (cfg.n_layers - rec) if forward else 0
+    else:
+        n["fused_mlp"] = cfg.n_layers
+        n["flash_attention"] = cfg.n_layers if forward else 0
+    return n
 
 
 def _copy(tree, dtype=None):
@@ -776,17 +908,22 @@ def _load_model(arch: str):
     return cfg, params, n_params
 
 
-def _rel_logit_diff(lk, lp, cfg):
+def _rel_logit_diff(lk, lp, cfg, chunk: int = 1024):
     """max |kernel - plain| / max |plain| over the real vocab rows (the
-    padded rows hold -1e30 on both paths), and the argmax agreement."""
+    padded rows hold -1e30 on both paths), and the argmax agreement, for
+    (B, S, vocab) logits.  Taken over ``chunk`` positions at a time, so
+    no float32 copy of a whole long-prompt tensor is made."""
     import torch
-    lk = lk[..., :cfg.vocab].float()
-    lp = lp[..., :cfg.vocab].float()
-    check(bool(torch.isfinite(lk).all()), f"{cfg.name}: kernel-path logits "
-                                          "not finite")
-    rel = float((lk - lp).abs().max() / lp.abs().max())
-    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-    return rel, agree
+    diff = scale = agree = 0.0
+    for s0 in range(0, lk.shape[1], chunk):
+        a = lk[:, s0:s0 + chunk, :cfg.vocab].float()
+        b = lp[:, s0:s0 + chunk, :cfg.vocab].float()
+        check(bool(torch.isfinite(a).all()),
+              f"{cfg.name}: kernel-path logits not finite")
+        diff = max(diff, float((a - b).abs().max()))
+        scale = max(scale, float(b.abs().max()))
+        agree += float((a.argmax(-1) == b.argmax(-1)).float().sum())
+    return diff / scale, agree / (lk.shape[0] * lk.shape[1])
 
 
 def serve_arch(arch: str, params, cfg):
@@ -891,22 +1028,36 @@ def profile_ticks(params, cfg, ms_per_tick: float, ticks: int = 8):
         for _ in range(ticks):
             engine.step()
         torch.cuda.synchronize()
+    out = _device_time(prof, ticks, "_per_tick")
+    if out is None:
+        return None
+    out.update(ticks=ticks, busy_share=out["device_ms_per_tick"]
+               / ms_per_tick)
+    print(f"profile {cfg.name} " + json.dumps(out))
+    return out
+
+
+def _device_time(prof, calls: int, suffix: str = ""):
+    """Device time of a profiled window per one of its ``calls``: the sum
+    of kernel durations (``device_ms``), each hand-written model kernel's
+    part (``<name>_ms``) and the device operation count
+    (``device_ops``), each key ending in ``suffix``; None if the profiler
+    saw no device events."""
+    import torch
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         print("profile: the profiler saw no device events; device time "
               "not measured")
         return None
-    dev_us = sum(e.time_range.elapsed_us() for e in kernels)
-    out = {"ticks": ticks, "device_ms_per_tick": dev_us / ticks / 1e3}
+    out = {f"device_ms{suffix}": sum(e.time_range.elapsed_us()
+                                     for e in kernels) / calls / 1e3}
     for name, fn_name in MODEL_KERNELS.items():
         us = sum(e.time_range.elapsed_us() for e in kernels
                  if fn_name in e.name)
         if us:
-            out[f"{name}_ms_per_tick"] = us / ticks / 1e3
-    out.update(device_ops_per_tick=len(kernels) / ticks,
-               busy_share=dev_us / ticks / 1e3 / ms_per_tick)
-    print(f"profile {cfg.name} " + json.dumps(out))
+            out[f"{name}_ms{suffix}"] = us / calls / 1e3
+    out[f"device_ops{suffix}"] = len(kernels) / calls
     return out
 
 
@@ -1015,7 +1166,7 @@ def forward_arch(arch: str, params, cfg, B: int = 2, S: int = 512):
         w_rel, w_agree = _rel_logit_diff(lw, lp, cfg)
         kw_rel, _ = _rel_logit_diff(lk, lw, cfg)
         del p32, xk, xp, xw, lk, lp, lw
-    for name, per_call in _per_call(cfg).items():
+    for name, per_call in _per_call(cfg, forward=True).items():
         check(launches[name] == per_call,
               f"{arch} forward: {name} launched {launches[name]} times, "
               f"expected {per_call}")
@@ -1047,16 +1198,116 @@ def forward_arch(arch: str, params, cfg, B: int = 2, S: int = 512):
     return row
 
 
+def forward_long(arch: str, params, cfg, B: int = 1, S: int = 8192):
+    """``forward`` at full width on a (B, S) prompt at the reference's
+    chunked-attention length, timed in bf16 with the kernels (one flash
+    and one ``fused_mlp`` launch per layer, nothing else) and on the
+    plain path (``_sdpa_chunked``).  The bf16 logits of the two paths are
+    compared in chunks of positions, so no float32 copy of the whole
+    (B, S, vocab) tensor is made.  Then, through ``_float32_twin``, each
+    layer's output with the kernels is held against the plain path's
+    from the same input (``LAYER_TOL``)."""
+    import torch
+    from repro_torch.models import forward
+    from repro_torch.models.layers import CHUNKED_ATTN_THRESHOLD
+    from repro_torch.models.transformer import _layer_fns
+    check(S >= CHUNKED_ATTN_THRESHOLD,
+          f"S={S} does not reach the chunked path")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    secs, logits = {}, {}
+    with torch.inference_mode():
+        forward(params, cfg, toks[:, :64])                # warm-up
+        forward(params, plain_cfg, toks)
+        for use in (True, False):
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            logits[use], _ = forward(params, cfg if use else plain_cfg,
+                                     toks)
+            torch.cuda.synchronize()
+            secs[use] = time.perf_counter() - t0
+            if use:
+                launches = _counts()
+        check(logits[True].shape == (B, S, cfg.padded_vocab),
+              f"{arch} forward: logits {tuple(logits[True].shape)}")
+        rel, agree = _rel_logit_diff(logits[True], logits[False], cfg)
+        del logits
+        breakdown = profile_forward(params, cfg, toks)
+        p32, c32 = _float32_twin(params, cfg)
+        kernel_fns = _layer_fns(p32, c32)
+        plain_fns = _layer_fns(p32, dataclasses.replace(c32,
+                                                        use_kernels=False))
+        positions = torch.arange(S, device="cuda")
+        x = p32["embed"][toks]
+        layer_rel = []
+        for fk, fp in zip(kernel_fns, plain_fns):
+            nk = fk(x, positions, None, None)
+            layer_rel.append(float((nk - fp(x, positions, None, None))
+                                   .abs().max() / nk.abs().max()))
+            x = nk
+        del p32, x, nk
+    for name, per_call in _per_call(cfg, forward=True).items():
+        check(launches[name] == per_call,
+              f"{arch} forward: {name} launched {launches[name]} times, "
+              f"expected {per_call}")
+    row = {"arch": arch, "B": B, "S": S, "kernel_s": secs[True],
+           "plain_s": secs[False], "launches": launches,
+           "profile": breakdown,
+           "layer_rel_diff_max": max(layer_rel), "layer_tol": LAYER_TOL,
+           "layer_rel_diff": layer_rel, "logit_rel_diff_bf16": rel,
+           "logit_tol": LOGIT_TOL, "argmax_agreement_bf16": agree}
+    print("forward " + json.dumps({k: v for k, v in row.items()
+                                   if k != "layer_rel_diff"}))
+    print(f"{arch} forward (float32 twin), each layer kernel vs plain from "
+          f"the same input, max |diff| / max |x| after layers 1, 6, 12, 18, "
+          f"last: {_picks(layer_rel)}")
+    check(max(layer_rel) <= LAYER_TOL,
+          f"{arch} forward: a layer's kernel-path output is off by "
+          f"{max(layer_rel):.3g} (tol {LAYER_TOL}): {layer_rel}")
+    check(rel <= LOGIT_TOL,
+          f"{arch} forward: bf16 kernel-path logits off the plain path's by "
+          f"{rel:.3g} (tol {LOGIT_TOL})")
+    return row
+
+
+def profile_forward(params, cfg, toks):
+    """Device time of one kernel-path ``forward`` by ``torch.profiler``:
+    the sum of kernel durations, each hand-written kernel's part, and
+    the rest (cuBLAS projections, the LM head, norms, RoPE)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import forward
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        forward(params, cfg, toks)
+        torch.cuda.synchronize()
+    out = _device_time(prof, 1)
+    if out is None:
+        return None
+    out["other_ms"] = out["device_ms"] - sum(
+        out.get(f"{name}_ms", 0.0) for name in MODEL_KERNELS)
+    print(f"profile forward {cfg.name} " + json.dumps(out))
+    return out
+
+
 def phase_models():
     """Serve and run forward for each arch at full width, one model on
     the card at a time."""
     import torch
     serves, forwards = {}, {}
-    for arch in ("qwen2.5-3b", "rwkv6-1.6b", "recurrentgemma-2b"):
+    for arch in ("qwen2.5-3b", "rwkv6-1.6b", "recurrentgemma-2b",
+                 "gemma3-4b"):
         cfg, params, _ = _load_model(arch)
         serves[arch] = serve_arch(arch, params, cfg)
         if cfg.arch_kind != "dense":
             forwards[arch] = forward_arch(arch, params, cfg)
+        elif arch == "gemma3-4b":
+            forwards[arch] = forward_long(arch, params, cfg)
         del params
         torch.cuda.empty_cache()
     return serves, forwards
@@ -1064,16 +1315,19 @@ def phase_models():
 
 def phase_small_reference():
     """Smoke configs in float32 on the card, kernels on: decode logits
-    against forward logits at every position.  The hybrid decodes 14
-    tokens through a 32-token cache whose local attention keeps a ring
-    of 8 slots (its window), so the ring wraps at t = 8."""
+    (plain attention) against forward logits (the flash kernel) at every
+    position.  The hybrid decodes 14 tokens through a 32-token cache
+    whose local attention keeps a ring of 8 slots (its window), so the
+    ring wraps at t = 8; gemma3-4b's local layers (window 8) mask the
+    oldest keys from t = 8 on."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, forward, init_cache, \
         init_model
     out = {}
     for arch, n, max_len in (("qwen2.5-3b", 8, 8), ("rwkv6-1.6b", 14, 32),
-                             ("recurrentgemma-2b", 14, 32)):
+                             ("recurrentgemma-2b", 14, 32),
+                             ("gemma3-4b", 14, 32)):
         cfg = dataclasses.replace(get_config(arch, smoke=True),
                                   dtype=torch.float32, use_kernels=True)
         params = init_model(cfg, seed=1, device="cuda")
@@ -1126,6 +1380,7 @@ def main() -> None:
     phase_build()
     rows, mp_rows, mp_exact, floor_ms = phase_kernels()
     wkv_rows, rg_rows = phase_recurrence_kernels(floor_ms)
+    flash_rows = phase_flash()
     serves, forwards = phase_models()
     serve = serves["qwen2.5-3b"]
     plan, plans, recorded = phase_planner()
@@ -1181,10 +1436,23 @@ def main() -> None:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    # flash attention: the main row is gemma3-4b's local layer (28 of its
+    # 34) at the forward's (1, 8192), bf16; launches from that forward
+    fl = next(r for r in flash_rows
+              if r["shape"] == "local-8192" and r["dtype"] == "bfloat16")
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:69",
+        "launches": forwards["gemma3-4b"]["launches"]["flash_attention"],
+        "max_abs_err": fl["max_abs_err"], "ms": fl["ms"],
+        "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
+        "bound_by": fl["bound_by"], "library_ms": fl["library_ms"]})
     record = {"card": smi, "kernels": kernels, "fused_mlp_rows": rows,
               "maxplus_rows": mp_rows, "maxplus_exact": mp_exact,
               "price_rows_rows": pr_rows, "wkv6_rows": wkv_rows,
-              "rglru_rows": rg_rows, "launch_floor_ms": floor_ms,
+              "rglru_rows": rg_rows, "flash_rows": flash_rows,
+              "launch_floor_ms": floor_ms,
               "serve": serve, "serves": serves, "forwards": forwards,
               "plan": plan, "simulate": sim, "small_reference": small,
               "seconds": time.perf_counter() - t_start}

@@ -10,6 +10,7 @@ import importlib
 from repro_torch.models.common import ModelConfig
 
 ARCHS = {
+    "gemma3-4b": "gemma3_4b",
     "qwen2.5-3b": "qwen2_5_3b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "rwkv6-1.6b": "rwkv6_1_6b",

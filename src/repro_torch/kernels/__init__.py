@@ -5,7 +5,9 @@ at first use.  Ported so far: ``fused_mlp`` (replaces the Pallas
 ``repro.kernels.fused_mlp``), ``maxplus_scan.maxplus_chunked`` (the
 Pallas max-plus scan the simulator runs), ``price_rows`` (the planner's
 candidate pricing, ``repro.core.pipeline_model_jax``'s device function),
-``rwkv6_scan.wkv6`` (the Pallas WKV6 recurrence) and
-``rglru_scan.rglru_chunked`` (the Pallas RG-LRU recurrence).
-``ROADMAP.md`` lists the kernels to come.
+``rwkv6_scan.wkv6`` (the Pallas WKV6 recurrence),
+``rglru_scan.rglru_chunked`` (the Pallas RG-LRU recurrence) and
+``flash_attention`` (the Pallas flash attention; ``attention_op`` is its
+entry in the model's layout, GQA by head-group indexing).  With it every
+Pallas kernel of the reference has a CUDA counterpart.
 """

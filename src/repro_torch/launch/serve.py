@@ -3,12 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve [--arch qwen2.5-3b] \
         [--smoke] [--use-kernels] [--kv-quant] [--requests 6] [--max-new 12]
 
-Serves the published config of ``--arch`` (qwen2.5-3b, rwkv6-1.6b or
-recurrentgemma-2b; random weights from seed 0) on the card by default;
-``--smoke`` takes the reduced sibling, and ``--device cpu`` runs on the
-CPU.  ``--use-kernels`` runs every hand-written CUDA kernel on the path:
-the fused SwiGLU (dense MLPs), the WKV6 recurrence (rwkv) and the RG-LRU
-recurrence (hybrid).  The planner options of ``repro.launch.serve``
+Serves the published config of ``--arch`` (qwen2.5-3b, gemma3-4b,
+rwkv6-1.6b or recurrentgemma-2b; random weights from seed 0) on the card
+by default; ``--smoke`` takes the reduced sibling, and ``--device cpu``
+runs on the CPU.  ``--use-kernels`` runs every hand-written CUDA kernel
+of the decode path: the fused SwiGLU (dense MLPs, all 34 of gemma3-4b's
+layers), the WKV6 recurrence (rwkv) and the RG-LRU recurrence (hybrid).
+Decode attention stays plain: the flash-attention kernel serves
+attention without a cache (``forward``), and a decode query sits at a
+per-slot position against a per-slot cache fill, which that kernel,
+like the reference's, does not take (it counts query rows from 0).  The planner options of ``repro.launch.serve``
 (``--plan``, ``--plan-store``, ``--tenants``) come with the planner slice.
 """
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Model zoo of the port: the dense decoder, RWKV-6 and hybrid
-(RecurrentGemma) families so far."""
+"""Model zoo of the port: the dense decoder (qwen2.5-3b, gemma3-4b),
+RWKV-6 and hybrid (RecurrentGemma) families so far."""
 from .common import ModelConfig, Params, resolve_device
 from .convert import params_from_jax
 from .transformer import (decode_step, forward, init_cache, init_model,

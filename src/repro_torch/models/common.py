@@ -51,9 +51,10 @@ class ModelConfig:
     # int8 KV cache with per-vector scales
     kv_quant: bool = False
     # run every hand-written CUDA kernel on the path: the MLP through
-    # kernels/fused_mlp, the RWKV-6 recurrence through kernels/rwkv6_scan,
-    # the RG-LRU recurrence through kernels/rglru_scan (as the reference's
-    # ``use_pallas`` does for every op of kernels/ops)
+    # kernels/fused_mlp, attention without a cache (prefill) through
+    # kernels/flash_attention, the RWKV-6 recurrence through
+    # kernels/rwkv6_scan, the RG-LRU recurrence through kernels/rglru_scan
+    # (as the reference's ``use_pallas`` does for every op of kernels/ops)
     use_kernels: bool = False
 
     @property

@@ -1,4 +1,4 @@
-"""Attention (GQA / RoPE / KV cache) and the SwiGLU MLP.
+"""Attention (GQA / RoPE / sliding window / KV cache) and the SwiGLU MLP.
 
 Port of the dense-path layers of ``repro.models.layers``.  Activations
 follow the reference's (batch, seq, ...) layout and its rounding points.
@@ -7,6 +7,11 @@ writes the new keys/values into the cache tensors in place (the reference
 returns updated copies; the cache is the caller's to own here).  A
 one-token decode reads its cache as a ring buffer, which is what local
 attention keeps (see ``attention``).
+
+Without a cache (prefill, ``forward``) attention takes, under
+``cfg.use_kernels``, the hand-written flash-attention kernel
+(``kernels.flash_attention.attention_op``) at any length; otherwise the
+reference's einsum path, chunked from ``CHUNKED_ATTN_THRESHOLD`` on.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.kernels.flash_attention import attention_op
 from repro_torch.kernels.fused_mlp import mlp_block
 
 from .common import ModelConfig, Params, apply_rope, dense_init
@@ -76,6 +82,42 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, hd)
 
 
+def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  cfg: ModelConfig, window: int, chunk: int = 512
+                  ) -> torch.Tensor:
+    """Chunked causal attention without an S x T score matrix (port of
+    the reference's ``_sdpa_chunked``, the einsum counterpart of the
+    flash kernel).  Query chunks run in order; a local layer slices only
+    the ``window + chunk`` keys a chunk can see.  window <= 0 means
+    unbounded.  Rounding as in ``_sdpa``: scores in the working type,
+    then fp32 for the softmax, weights cast to v's type."""
+    B, S, H, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    while chunk > 64 and S % chunk != 0:   # e.g. VLM seq = text + patches
+        chunk //= 2
+    if S % chunk != 0:
+        chunk = next((c for c in range(min(chunk, S), 0, -1)
+                      if S % c == 0), S)
+    w_eff = window if window and 0 < window < T else T
+    ksz = min(T, w_eff + chunk)
+    outs = []
+    for q0 in range(0, S, chunk):
+        k0 = min(max(q0 + chunk - ksz, 0), T - ksz)
+        qg = q[:, q0:q0 + chunk].reshape(B, chunk, Hkv, G, hd)
+        kc, vc = k[:, k0:k0 + ksz], v[:, k0:k0 + ksz]
+        qpos = q0 + torch.arange(chunk, device=q.device)[:, None]
+        kpos = k0 + torch.arange(ksz, device=q.device)[None, :]
+        mask = (kpos <= qpos) & (qpos - kpos < w_eff)
+        sc = torch.einsum("bskgh,btkh->bkgst", qg, kc).float()
+        sc = sc / math.sqrt(hd)
+        sc = torch.where(mask, sc, -1e30)
+        w = torch.softmax(sc, dim=-1).to(v.dtype)
+        oc = torch.einsum("bkgst,btkh->bskgh", w, vc)
+        outs.append(oc.reshape(B, chunk, H, hd))
+    return torch.cat(outs, dim=1)
+
+
 def _place(cache: torch.Tensor, new: torch.Tensor, index: Index) -> None:
     """Write ``new`` (B, S, ...) into ``cache`` (B, T, ...) in place, at
     ``index`` (an int, or a (B,) tensor of per-row starts).  Starts are
@@ -129,6 +171,13 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
     buffer that local attention keeps (T_max = window).  The reference
     masks a ring buffer as if it were linear, which admits the wrong keys
     once it wraps (``ROADMAP.md``, Queue 3).
+
+    Without a cache, ``cfg.use_kernels`` sends q, k and v to the flash
+    kernel at any S; otherwise S >= ``CHUNKED_ATTN_THRESHOLD`` takes
+    ``_sdpa_chunked`` (window 0 on global layers), as in the reference.
+    Decode stays on ``_sdpa`` either way: its query sits at a per-slot
+    position against a per-slot cache fill, and the kernel, like the
+    reference's, counts query rows from 0.
     """
     B, S, _ = x.shape
     if positions.ndim == 1:
@@ -177,10 +226,14 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
         if window is not None:
             mask = mask & (qpos - kpos < window)
     else:
+        if cfg.use_kernels:
+            # the flash kernel: q tile, running max and sum and the fp32
+            # accumulator stay on chip across the kv sweep
+            out = attention_op(q, k, v, causal=True, window=window or 0)
+            return out.reshape(B, S, -1) @ p["wo"]
         if S >= CHUNKED_ATTN_THRESHOLD:
-            raise NotImplementedError(
-                f"S={S} >= {CHUNKED_ATTN_THRESHOLD} takes the reference's "
-                "chunked attention, which is not ported yet (ROADMAP.md)")
+            out = _sdpa_chunked(q, k, v, cfg, window or 0)
+            return out.reshape(B, S, -1) @ p["wo"]
         i = torch.arange(S, device=x.device)[:, None]
         j = torch.arange(S, device=x.device)[None, :]
         mask = j <= i

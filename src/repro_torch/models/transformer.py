@@ -56,8 +56,12 @@ def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def layer_windows(cfg: ModelConfig) -> List[int]:
     """Per-layer attention window (``BIG_WINDOW`` for global layers) of
-    the gemma3-style local:global pattern.  The hybrid family does not
-    use it: its attention layers are all local (``cfg.local_window``)."""
+    the gemma3-style local:global pattern: layer l is global when
+    ``(l + 1) % global_every == 0``, so gemma3-4b's 34 layers are five
+    groups of 5 local + 1 global and 4 local layers, global at 5, 11, 17,
+    23 and 29, the windows the reference's pattern-group walk gives.  The
+    hybrid family does not use it: its attention layers are all local
+    (``cfg.local_window``)."""
     if cfg.local_window <= 0:
         return [BIG_WINDOW] * cfg.n_layers
     w = []
@@ -207,7 +211,10 @@ def _hybrid_layer(cfg: ModelConfig, x: torch.Tensor, layer_p: Params,
 
 def _layer_fns(params: Params, cfg: ModelConfig
                ) -> List[Callable[..., torch.Tensor]]:
-    """One callable per layer: (x, positions, cache, index) -> x."""
+    """One callable per layer: (x, positions, cache, index) -> x.  A
+    global layer passes no window without a cache (as the reference's
+    static windows do, so a long prefill takes window 0 in the chunked
+    path or the flash kernel) and ``BIG_WINDOW`` with one."""
     if cfg.arch_kind == "hybrid":
         return [lambda x, pos, c, i, lp=lp: _hybrid_layer(cfg, x, lp, pos,
                                                           c, i)

@@ -39,7 +39,9 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.configs.xrbench",
                 "repro_torch.kernels.rwkv6_scan",
                 "repro_torch.kernels.rglru_scan",
-                "repro_torch.models.rwkv6", "repro_torch.models.rglru"):
+                "repro_torch.models.rwkv6", "repro_torch.models.rglru",
+                "repro_torch.kernels.flash_attention",
+                "repro_torch.configs.gemma3_4b"):
         assert mod in res["imported"]
 
 

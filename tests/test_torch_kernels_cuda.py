@@ -317,3 +317,113 @@ def test_recurrent_models_take_the_kernels_on_the_card(arch):
         assert kernel.launches == before + 14 * n_rec
     torch.testing.assert_close(torch.stack(steps, 1), full, atol=1e-4,
                                rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (gemma3-4b's prefill, recurrentgemma-2b's local layers)
+# ---------------------------------------------------------------------------
+
+# the reference suite's tolerances (tests/test_kernels.py): float32 differs
+# in summation order only, bf16 also where the output rounds
+_FLASH_TOL = {torch.float32: 3e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("B,S,T,H,Hkv,hd,causal,window", [
+    (1, 2048, 2048, 8, 4, 256, True, 1024),   # gemma3-4b local
+    (1, 1024, 1024, 8, 4, 256, True, 0),      # gemma3-4b global
+    (2, 777, 777, 4, 2, 128, True, 100),      # ragged S
+    (1, 128, 1500, 16, 16, 64, False, 0),     # cross-attention, T != S
+    (1, 300, 100, 4, 2, 32, True, 64),        # rows with no admitted key
+    (2, 24, 24, 4, 2, 16, True, 8)])          # the smoke configs
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(B, S, T, H, Hkv, hd, causal,
+                                              window, dtype):
+    from repro_torch.kernels.flash_attention import (attention_op,
+                                                     attention_op_ref,
+                                                     flash_attention)
+    _need_card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(S + T + hd)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = rnd(B, S, H, hd), rnd(B, T, Hkv, hd), rnd(B, T, Hkv, hd)
+    before = flash_attention.launches
+    out = attention_op(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, S, H, hd)
+    tol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(
+        out.float(), attention_op_ref(q, k, v, causal=causal,
+                                      window=window).float(),
+        atol=tol, rtol=tol)
+
+
+def test_flash_attention_reference_layout_and_checks():
+    from repro_torch.kernels.flash_attention import (attention_op,
+                                                     attention_ref,
+                                                     flash_attention)
+    _need_card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    q, k, v = (torch.randn(3, 256, 64, generator=gen, device="cuda")
+               for _ in range(3))
+    for causal, window in ((True, 0), (True, 64), (False, 64)):
+        torch.testing.assert_close(
+            flash_attention(q, k, v, causal=causal, window=window),
+            attention_ref(q, k, v, causal=causal, window=window),
+            atol=3e-4, rtol=3e-4)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(0, 1), k.transpose(0, 1),
+                        v.transpose(0, 1))
+    with pytest.raises(ValueError, match="one device"):
+        flash_attention(q, k, v.cpu())
+    with pytest.raises(ValueError, match="head size"):
+        flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                        v[..., :48].contiguous())
+    q4 = q.reshape(1, 3, 256, 64).transpose(1, 2).contiguous()
+    with pytest.raises(ValueError, match="multiple"):
+        attention_op(q4, q4[:, :, :2].contiguous(), q4[:, :, :2].contiguous())
+
+
+def test_gemma3_takes_the_flash_kernel_on_the_card():
+    """gemma3-4b smoke in float32 on the card: forward through the flash
+    kernel (one launch per layer) against the plain path, at S = 24 and
+    at the chunked length S = 8192, and decode (plain attention) against
+    forward past the local window."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import decode_step, forward, init_cache, \
+        init_model
+    _need_card()
+    cfg = dataclasses.replace(get_config("gemma3-4b", smoke=True),
+                              dtype=torch.float32, use_kernels=True)
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    params = init_model(cfg, seed=1, device="cuda")
+    gen = torch.Generator(device="cuda")
+    with torch.inference_mode():
+        for S in (24, 8192):
+            toks = torch.randint(0, cfg.vocab, (1, S), device="cuda",
+                                 generator=gen)
+            before = flash_attention.launches
+            full, _ = forward(params, cfg, toks)
+            assert flash_attention.launches == before + cfg.n_layers
+            ref, _ = forward(params, plain, toks)
+            torch.testing.assert_close(full, ref, atol=1e-4, rtol=1e-4)
+        toks = toks[:, :14]
+        full, _ = forward(params, cfg, toks)
+        cache = init_cache(cfg, 1, 32, device="cuda")
+        before = flash_attention.launches
+        steps = []
+        for i in range(14):
+            lg, cache = decode_step(params, cfg, toks[:, i:i + 1], cache, i)
+            steps.append(lg[:, 0])
+        assert flash_attention.launches == before
+    torch.testing.assert_close(torch.stack(steps, 1), full, atol=1e-4,
+                               rtol=1e-4)

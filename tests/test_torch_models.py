@@ -21,6 +21,7 @@ from repro.models import decode_step as jax_decode_step
 from repro.models import forward as jax_forward
 from repro.models import init_cache as jax_init_cache
 from repro.models import init_model as jax_init_model
+from repro.models.layers import attention as jax_attention
 from repro_torch.configs import get_config
 from repro_torch.models import (decode_step, forward, init_cache, init_model,
                                 params_from_jax)
@@ -100,7 +101,7 @@ def test_configs_match_reference():
         assert jf == tf
         assert (j.hd, j.padded_vocab) == (t.hd, t.padded_vocab)
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_config("gemma3-4b")
+        get_config("granite-moe-1b-a400m")
 
 
 def test_init_model_layout_matches_reference():
@@ -191,12 +192,20 @@ def test_bf16_matches_reference():
 
 
 def test_long_prefill_is_not_ported_yet():
-    _, tcfg = _cfgs()
-    _, tp = _params("float32")
-    x = torch.zeros((1, CHUNKED_ATTN_THRESHOLD, tcfg.d_model))
+    """The long prefill (S >= CHUNKED_ATTN_THRESHOLD without a cache), once
+    refused by the port, now runs the reference's chunked attention and
+    matches it (qwen2.5-3b's layer 0 attention, one global layer)."""
+    jcfg, tcfg = _cfgs()
+    jp, tp = _params("float32")
+    S = CHUNKED_ATTN_THRESHOLD
+    x = np.random.default_rng(10).standard_normal(
+        (1, S, tcfg.d_model)).astype(np.float32)
     attn = {k: v[0] for k, v in tp["layers"]["attn"].items()}
-    with pytest.raises(NotImplementedError, match="chunked"):
-        attention(attn, x, tcfg, torch.arange(CHUNKED_ATTN_THRESHOLD))
+    got = attention(attn, torch.from_numpy(x), tcfg, torch.arange(S))
+    jattn = {k: v[0] for k, v in jp["layers"]["attn"].items()}
+    want, _ = jax_attention(jattn, jnp.asarray(x), jcfg, jnp.arange(S))
+    assert got.shape == (1, S, tcfg.d_model)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=1e-4)
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu():
