@@ -15,8 +15,11 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch
    version at the main paths' shapes, with times, the bound, a PyTorch
    yardstick (``library_ms``, where one call computes the function) and,
-   for the launch- or latency-bound kernels and flash attention, the
-   kernel's device time by the profiler;
+   for ``fused_mlp``, the launch- or latency-bound kernels and flash
+   attention, the kernel's device time by the profiler; ``fused_mlp``
+   at qwen2.5-3b and gemma3-4b widths (decode, prefill, ragged T, ragged
+   D and F) in bf16 and float32, each also called twice and required to
+   give the same bits;
 4. models, one on the card at a time, each at full width with random
    bf16 weights from a seed: qwen2.5-3b, rwkv6-1.6b, recurrentgemma-2b
    and gemma3-4b each answer 6 requests through ``ServeEngine`` with the
@@ -71,8 +74,9 @@ SRC = ROOT / "src"
 #: TF32 is off; the planner's kernels run float64)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "float64": 34e12}
-#: kernel vs plain: f32 differs only in summation order (fp32 atomics
-#: over F chunks); bf16 also in where h and the output round to bf16
+#: kernel vs plain: f32 differs only in summation order (partials over
+#: splits of F, summed in split order); bf16 also in where h and the
+#: output round to bf16
 KERNEL_TOL = {"bfloat16": 2e-2, "float32": 2e-4}
 #: full-width decode step, kernel path vs plain path, or forward, kernel
 #: path vs the plain path with its recurrence in float64, relative to the
@@ -87,7 +91,13 @@ LAYER_TOL = 1e-4
 #: smoke configs in float32: decode vs prefill differ in summation order
 SMALL_TOL = 1e-4
 
-FUSED_MLP_SHAPES = [("decode", 4), ("prefill", 256), ("ragged", 5)]
+#: (label, T, D, F): qwen2.5-3b width (the serve path's 4 slots, a
+#: 256-token prompt, a ragged T) and gemma3-4b width (4 slots, and the
+#: (1, 8192) forward's prefill, which float32 checks without timing)
+FUSED_MLP_SHAPES = [("decode", 4, 2048, 11008), ("prefill", 256, 2048, 11008),
+                    ("ragged", 5, 2048, 11008),
+                    ("decode-gemma", 4, 2560, 10240),
+                    ("prefill-gemma", 8192, 2560, 10240)]
 
 #: the simulator scans one row of T <= 512 bursts (DEFAULT_MAX_BURSTS);
 #: (label, B, T)
@@ -203,8 +213,10 @@ def phase_build():
                 print(f"    {line.strip()}")
 
 
-def check_fused_mlp(label: str, T: int, D: int, F: int, dtype_name: str):
-    """One shape: the kernel against its plain version, with times."""
+def check_fused_mlp(label: str, T: int, D: int, F: int, dtype_name: str,
+                    timed: bool = True):
+    """One shape: the kernel against its plain version, a second call
+    bitwise equal to the first, and (``timed``) its times."""
     import torch
     from repro_torch.kernels.fused_mlp import fused_mlp, fused_mlp_ref
     dtype = getattr(torch, dtype_name)
@@ -219,19 +231,27 @@ def check_fused_mlp(label: str, T: int, D: int, F: int, dtype_name: str):
     wg, wu = rnd(D, F, scale=D ** -0.5), rnd(D, F, scale=D ** -0.5)
     wd = rnd(F, D, scale=F ** -0.5)
     out = fused_mlp(x, wg, wu, wd)
+    again = fused_mlp(x, wg, wu, wd)
     exp = fused_mlp_ref(x, wg, wu, wd)
     torch.cuda.synchronize()
     check(out.dtype == dtype and out.shape == (T, D),
           f"fused_mlp {label}: {out.dtype} {tuple(out.shape)}")
+    check(torch.equal(out, again),
+          f"fused_mlp {label} {dtype_name}: two calls on the same inputs "
+          f"differ")
+    del again
     diff = (out.float() - exp.float()).abs()
     tol = KERNEL_TOL[dtype_name]
     ok = bool((diff <= tol + tol * exp.float().abs()).all())
     row = {"shape": label, "T": T, "D": D, "F": F, "dtype": dtype_name,
-           "max_abs_err": float(diff.max()), "tol": tol, "ok": ok}
-    if label != "mask-check":
+           "max_abs_err": float(diff.max()), "tol": tol, "ok": ok,
+           "repeatable": True}
+    if timed:
         sync = torch.cuda.synchronize
         plain_ms = time_ms(lambda: fused_mlp_ref(x, wg, wu, wd), sync)
         ms = time_ms(lambda: fused_mlp(x, wg, wu, wd), sync)
+        dev_us = device_us(lambda: fused_mlp(x, wg, wu, wd),
+                           MODEL_KERNELS["fused_mlp"], calls=5)
         library_ms = time_ms(
             lambda: (torch.nn.functional.silu(x @ wg) * (x @ wu)) @ wd, sync)
         size = torch.finfo(dtype).bits // 8
@@ -239,8 +259,8 @@ def check_fused_mlp(label: str, T: int, D: int, F: int, dtype_name: str):
         ops = 6 * T * D * F
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
-        row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=max(t_bytes, t_ops),
+        row.update(ms=ms, device_ms=_us_to_ms(dev_us), plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
     print("fused_mlp " + json.dumps(row))
     check(ok, f"fused_mlp {label} {dtype_name}: max err "
@@ -248,13 +268,36 @@ def check_fused_mlp(label: str, T: int, D: int, F: int, dtype_name: str):
     return row
 
 
+def fused_mlp_occupancy():
+    """How many of each ``fused_mlp`` kernel fit the card at once: the
+    prefill regime's clusters per D-slice tile, the rows regime's blocks
+    per SM (by the CUDA occupancy calculator), and the SM count."""
+    import torch
+    from repro_torch.kernels import fused_mlp as fm
+    lib = fm._library()
+    row = {"shape": "occupancy",
+           "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+           "clusters": {tile: lib.fused_mlp_max_active_clusters(tile)
+                        for tile in fm.CLUSTER_DC_TILES},
+           "rows_blocks_per_sm": {
+               name: lib.fused_mlp_rows_blocks_per_sm(code, 2560)
+               for name, code in (("float32", 0), ("bfloat16", 1))}}
+    print("fused_mlp " + json.dumps(row))
+    check(min(row["clusters"].values()) > 0
+          and min(row["rows_blocks_per_sm"].values()) > 0,
+          f"fused_mlp: a kernel does not fit the card: {row}")
+    return row
+
+
 def phase_kernels():
-    rows = [check_fused_mlp(label, T, 2048, 11008, dt)
-            for label, T in FUSED_MLP_SHAPES
+    rows = [check_fused_mlp(label, T, D, F, dt,
+                            timed=(label, dt) != ("prefill-gemma", "float32"))
+            for label, T, D, F in FUSED_MLP_SHAPES
             for dt in ("bfloat16", "float32")]
     # ragged D and F too (the shapes above are ragged only in T)
-    rows += [check_fused_mlp("mask-check", 5, 200, 300, dt)
+    rows += [check_fused_mlp("mask-check", 5, 200, 300, dt, timed=False)
              for dt in ("bfloat16", "float32")]
+    rows.append(fused_mlp_occupancy())
     floor_ms = launch_floor_ms()
     print(f"launch floor: {floor_ms * 1e3:.2f} us per one-element torch op")
     mp_rows = [check_maxplus(label, B, T, floor_ms)
@@ -1390,15 +1433,25 @@ def main() -> None:
 
     main_row = next(r for r in rows
                     if r["shape"] == "decode" and r["dtype"] == "bfloat16")
+    prefill_row = next(r for r in rows if r["shape"] == "prefill-gemma"
+                       and r["dtype"] == "bfloat16")
     kernels = [{
         "name": "fused_mlp", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_mlp.cu",
         "replaces": "src/repro/kernels/fused_mlp.py:48",
         "launches": serve["launches"]["fused_mlp"],
         "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
+        "device_ms": main_row["device_ms"],
         "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]
+        "library_ms": main_row["library_ms"],
+        "prefill_shape": [prefill_row["T"], prefill_row["D"],
+                          prefill_row["F"]],
+        "prefill_ms": prefill_row["ms"],
+        "prefill_device_ms": prefill_row["device_ms"],
+        "prefill_library_ms": prefill_row["library_ms"],
+        "prefill_bound_ms": prefill_row["bound_ms"],
+        "prefill_bound_by": prefill_row["bound_by"]}]
     # the planner's kernels: no single PyTorch call computes either
     # function (a max-plus scan; the Fig. 3 recurrence), so library_ms is
     # null; their main rows are the simulator's one-row T = 512 scan and

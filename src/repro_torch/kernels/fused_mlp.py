@@ -1,19 +1,34 @@
 """Fused SwiGLU MLP — PipeOrgan's fine-grained inter-op pipelining on Hopper.
 
 Port of ``repro.kernels.fused_mlp``.  ``fused_mlp`` launches the CUDA
-kernel in ``csrc/fused_mlp.cu``, which keeps each (T tile x F chunk) of
-the intermediate ``silu(x Wg) * (x Wu)`` in shared memory and feeds it
-straight into the down product: the (T, F) intermediate never reaches
-device memory.  The source's header says what bounds it and why.
+kernels in ``csrc/fused_mlp.cu``.  The intermediate ``silu(x Wg) * (x Wu)``
+is handed from the two producer products to the down product on chip and
+never reaches device memory.  Three regimes, chosen by ``choose_regime``
+from T, D and the dtype (the source's header says what bounds each):
+
+* bf16 with at least ``PREFILL_MIN_T`` rows: tensor cores (``mma.sync``)
+  across a cluster of ``CLUSTER`` CTAs that share h through distributed
+  shared memory;
+* bf16 with fewer rows (decode): a bandwidth-bound kernel that splits F
+  over the SMs and reads the weights once with 16-byte loads;
+* float32, every T: the same kernel on the CUDA cores, fp32 products.
+
+Where F is split over blocks, each split writes its fp32 partial into a
+workspace and the partials are summed in a fixed order, so two calls on
+the same inputs give the same bits.
 
 On a CPU tensor the wrapper computes the plain version, ``fused_mlp_ref``
 (the port of ``repro.kernels.ref.fused_mlp_ref``); on a CUDA tensor it
-launches the kernel or raises.  ``fused_mlp.launches`` counts launches.
+launches the kernel or raises.  ``fused_mlp.launches`` counts calls that
+launched: one per call, though a call may run two CUDA functions, the
+regime's kernel and the ordered reduction of its splits.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import Tuple
 
 import torch
 
@@ -21,6 +36,92 @@ from . import build
 
 #: kernel dtype codes of ``fused_mlp_launch``
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: regime codes of ``fused_mlp_launch``
+_REGIMES = {"rows": 0, "cluster": 1}
+
+#: F columns per chunk, every regime (``kBF`` in the source)
+BF = 64
+#: CTAs per cluster and rows per cluster tile (``kC``, ``kBT``)
+CLUSTER = 8
+CLUSTER_BT = 64
+#: D-slice widths the cluster kernel is built for: a CTA's slice of D is
+#: padded to the smallest that holds it; a wider D takes the rows regime
+CLUSTER_DC_TILES = (64, 128, 256, 320)
+#: a cluster's start (its x slice, the first stripes), in chunks' time
+CLUSTER_START_CHUNKS = 2
+#: bf16 rows from which the cluster regime runs.  Its time hardly grows
+#: with T up to one 64-row tile, while the rows regime reads the weights
+#: once per ``ROWS_BT`` rows; on the H100 the rows regime wins only for
+#: one 4-row tile, the serve path's 4 slots (PERF.md)
+PREFILL_MIN_T = 5
+#: rows per block of the rows regime (``kRowsBtBf16``, ``kRowsBtF32``)
+ROWS_BT = {torch.bfloat16: 4, torch.float32: 8}
+#: the rows regime's splits of F: from one wave of blocks up to this many,
+#: the count that fills its last wave best, and no split narrower than
+#: ``ROWS_MIN_COLS`` columns
+ROWS_WAVES = 4
+ROWS_MIN_COLS = 16
+
+
+def cluster_dc(D: int) -> int:
+    """Columns of D each CTA of a cluster owns: D / CLUSTER rounded up to
+    a multiple of 8 (16 bytes of bf16)."""
+    per_cta = -(-D // CLUSTER)
+    return -(-per_cta // 8) * 8
+
+
+def choose_regime(T: int, D: int, bf16: bool) -> Tuple[str, int]:
+    """(regime, D-slice tile) for a call: ``("cluster", tile)`` for bf16
+    with ``T >= PREFILL_MIN_T`` whose D-slice fits a tile, else
+    ``("rows", 0)``."""
+    if bf16 and T >= PREFILL_MIN_T:
+        dc = cluster_dc(D)
+        for tile in CLUSTER_DC_TILES:
+            if tile >= dc:
+                return "cluster", tile
+    return "rows", 0
+
+
+def rows_splits(row_tiles: int, F: int, slots: int) -> int:
+    """Splits of F for the rows regime, where ``slots`` blocks fit the
+    card at once.  Each split takes an even share of F, so a call's time
+    follows its fullest wave: take the count, between one and
+    ``ROWS_WAVES`` waves of blocks, whose last wave is fullest (the
+    smallest such), one split when the row tiles fill a wave alone."""
+    if row_tiles >= slots:
+        return 1
+    lo = -(-slots // row_tiles)
+    hi = -(-ROWS_WAVES * slots // row_tiles)
+    # the smallest count that fills whole waves, where there is one
+    whole = slots // math.gcd(row_tiles, slots)
+    best = -(-lo // whole) * whole
+    if best > hi:
+        def fill(n):
+            waves = row_tiles * n / slots
+            return waves / math.ceil(waves)
+
+        best = max(range(lo, hi + 1), key=lambda n: (fill(n), -n))
+    return max(1, min(best, F // ROWS_MIN_COLS))
+
+
+def split_f(row_tiles: int, F: int, slots: int) -> Tuple[int, int]:
+    """(splits, chunks per split) of F's ``BF``-wide chunks for the
+    cluster regime, where ``slots`` clusters fit the card at once.  A
+    call takes about (waves of clusters) x (chunks a cluster sweeps +
+    ``CLUSTER_START_CHUNKS``); take the split count that makes this
+    least, the smallest such; one split where the row tiles fill a wave
+    alone (more would add a reduction for little).  No split is empty."""
+    chunks = -(-F // BF)
+    if row_tiles >= slots:               # the tiles fill a wave alone
+        return 1, chunks
+
+    def cost(n):
+        per = -(-chunks // n)
+        return -(-row_tiles * n // slots) * (per + CLUSTER_START_CHUNKS)
+
+    n_split = min(range(1, chunks + 1), key=lambda n: (cost(n), n))
+    per = -(-chunks // n_split)
+    return -(-chunks // per), per
 
 
 def fused_mlp_ref(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -36,13 +137,61 @@ def fused_mlp_ref(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 def _library() -> ctypes.CDLL:
     lib = build.load("fused_mlp")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_mlp_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.fused_mlp_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                     i, p]
     lib.fused_mlp_launch.restype = i
+    lib.fused_mlp_max_active_clusters.argtypes = [i]
+    lib.fused_mlp_max_active_clusters.restype = i
+    lib.fused_mlp_rows_blocks_per_sm.argtypes = [i, i]
+    lib.fused_mlp_rows_blocks_per_sm.restype = i
     lib.fused_mlp_max_t.argtypes = []
     lib.fused_mlp_max_t.restype = i
     lib.fused_mlp_error_string.argtypes = [i]
     lib.fused_mlp_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.cache
+def _cluster_slots(index: int, tile: int) -> int:
+    """Clusters of the prefill kernel that fit card ``index`` at once."""
+    with torch.cuda.device(index):
+        n = _library().fused_mlp_max_active_clusters(tile)
+    if n <= 0:
+        raise RuntimeError(f"fused_mlp: no {CLUSTER}-CTA cluster of the "
+                           f"D-slice tile {tile} fits this card ({n})")
+    return n
+
+
+@functools.cache
+def _rows_slots(index: int, dtype: torch.dtype, D: int) -> int:
+    """Blocks of the rows kernel that fit card ``index`` at once."""
+    with torch.cuda.device(index):
+        n = _library().fused_mlp_rows_blocks_per_sm(_DTYPES[dtype], D)
+    if n <= 0:
+        raise RuntimeError(f"fused_mlp: no block of the rows kernel fits "
+                           f"an SM at D={D} ({n})")
+    return n * _sm_count(index)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(index: int, T: int, D: int, F: int, dtype: torch.dtype):
+    """(regime code, D-slice tile, splits, chunks per split, workspace
+    floats) of a call; a cluster call with one split needs no workspace."""
+    regime, tile = choose_regime(T, D, dtype == torch.bfloat16)
+    if regime == "cluster":
+        n_split, per = split_f(-(-T // CLUSTER_BT), F,
+                               _cluster_slots(index, tile))
+        ws = 0 if n_split == 1 else n_split * T * D
+    else:
+        n_split, per = rows_splits(-(-T // ROWS_BT[dtype]), F,
+                                   _rows_slots(index, dtype, D)), 0
+        ws = n_split * T * D
+    return _REGIMES[regime], tile, n_split, per, ws
 
 
 def fused_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -74,18 +223,26 @@ def fused_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     if not 0 < T <= lib.fused_mlp_max_t():
         raise ValueError(f"T={T} is outside one launch's 1.."
                          f"{lib.fused_mlp_max_t()} rows")
-    out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_mlp_launch(
-            x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-            w_down.data_ptr(), out.data_ptr(), T, D, F, _DTYPES[x.dtype],
-            stream)
+    index = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    regime, tile, n_split, per, n_ws = _plan(index, T, D, F, x.dtype)
+    # per-split fp32 partials, summed in a fixed order by the kernel
+    ws = torch.empty(n_ws, dtype=torch.float32, device=x.device)
+    out = torch.empty((T, D), dtype=x.dtype, device=x.device)
+    args = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+            w_down.data_ptr(), ws.data_ptr(), out.data_ptr(), T, D, F,
+            _DTYPES[x.dtype], regime, tile, n_split, per,
+            torch.cuda.current_stream(index).cuda_stream)
+    if index == torch.cuda.current_device():
+        err = lib.fused_mlp_launch(*args)
+    else:
+        with torch.cuda.device(index):
+            err = lib.fused_mlp_launch(*args)
     if err != 0:
         raise RuntimeError("fused_mlp launch failed: "
                            + lib.fused_mlp_error_string(err).decode())
     fused_mlp.launches += 1
-    return out.to(x.dtype)
+    return out
 
 
 fused_mlp.launches = 0

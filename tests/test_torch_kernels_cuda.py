@@ -8,12 +8,13 @@ machine with the card (it has no JAX, so this file imports none):
 import pytest
 import torch
 
-from repro_torch.kernels.fused_mlp import fused_mlp, fused_mlp_ref, mlp_block
+from repro_torch.kernels.fused_mlp import (choose_regime, fused_mlp,
+                                           fused_mlp_ref, mlp_block)
 
 pytestmark = pytest.mark.cuda
 
-# f32: summation order only (fp32 atomics over F chunks); bf16: also
-# where h and the output round to bf16
+# f32: summation order only (per-split partials summed in split order);
+# bf16: also where h and the output round to bf16
 _TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 
@@ -37,7 +38,15 @@ def _inputs(T, D, F, dtype, seed=0):
 
 @pytest.mark.parametrize("T,D,F", [
     (1, 64, 128), (4, 2048, 11008), (5, 200, 300), (17, 96, 33),
-    (256, 512, 1024)])
+    (256, 512, 1024),
+    # the regime boundary (bf16 cluster from 64 rows) and tile edges
+    (16, 96, 128), (17, 128, 192), (63, 200, 300), (64, 128, 256),
+    (65, 136, 200), (8192, 64, 128),
+    # gemma3-4b width, prefill
+    (256, 2560, 10240),
+    # ragged D-slices: 1000 / 8 = 125 columns a CTA (16-byte loads), and
+    # 203 (element loads), neither a multiple of 8 x 16
+    (96, 1000, 256), (70, 203, 77)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_mlp_kernel_matches_plain(T, D, F, dtype):
     _need_card()
@@ -50,6 +59,41 @@ def test_fused_mlp_kernel_matches_plain(T, D, F, dtype):
     tol = _TOL[dtype]
     torch.testing.assert_close(out.float(), fused_mlp_ref(*args).float(),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("T,D,F", [(4, 2048, 11008), (256, 2560, 10240),
+                                   (65, 200, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mlp_is_bitwise_repeatable(T, D, F, dtype):
+    """No atomics: every regime sums in a fixed order, so two calls on the
+    same inputs give the same bits."""
+    _need_card()
+    args = _inputs(T, D, F, dtype, seed=3)
+    first = fused_mlp(*args)
+    second = fused_mlp(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_fused_mlp_prefill_regime_counts_one_launch():
+    """The bf16 prefill runs the cluster kernel and, with F split over
+    clusters, the ordered reduction: every CUDA function the call runs is
+    named ``fused_mlp_kernel*``, and the call counts one launch."""
+    from torch.profiler import ProfilerActivity, profile
+    _need_card()
+    args = _inputs(512, 2560, 10240, torch.bfloat16)
+    assert choose_regime(512, 2560, True)[0] == "cluster"
+    fused_mlp(*args)
+    torch.cuda.synchronize()
+    before = fused_mlp.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_mlp(*args)
+        torch.cuda.synchronize()
+    assert fused_mlp.launches == before + 1
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all("fused_mlp_kernel" in n for n in names), names
+    assert any("fused_mlp_kernel_cluster" in n for n in names), names
 
 
 def test_mlp_block_and_input_checks():
