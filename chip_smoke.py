@@ -11,15 +11,19 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    limit, and turns TF32 off for float32 products;
 2. build: compiles every kernel (fused_mlp, maxplus_scan, price_rows,
    rwkv6_scan, rglru_scan, flash_attention) with ``nvcc``, one process
-   per source, all started together;
+   per source, all started together, and prints each CUDA function's
+   registers and spills;
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch
    version at the main paths' shapes, with times, the bound, a PyTorch
    yardstick (``library_ms``, where one call computes the function) and,
    for ``fused_mlp``, the launch- or latency-bound kernels and flash
    attention, the kernel's device time by the profiler; ``fused_mlp``
    at qwen2.5-3b and gemma3-4b widths (decode, prefill, ragged T, ragged
-   D and F) in bf16 and float32, each also called twice and required to
-   give the same bits;
+   D and F) and flash attention at the model paths' shapes, in bf16
+   (tensor cores, also held to a limit in bf16 ulps) and float32, each
+   also called twice and required to give the same bits; just before
+   and after each flash timing window, the card's SM clock, power and
+   temperature by ``nvidia-smi``;
 4. models, one on the card at a time, each at full width with random
    bf16 weights from a seed: qwen2.5-3b, rwkv6-1.6b, recurrentgemma-2b
    and gemma3-4b each answer 6 requests through ``ServeEngine`` with the
@@ -136,6 +140,12 @@ RGLRU_SHAPES = [("decode", 4, 1, True), ("prefill", 2, 512, False),
 #: bf16 also where the output rounds (the plain version rounds once, as
 #: the kernel does, but from another fp32 sum)
 FLASH_TOL = {"bfloat16": 3e-2, "float32": 3e-4}
+#: bf16 flash rows are also held element by element to this many bf16
+#: ulps of the larger of |exp| and the RMS of exp's row (``_ulp_err``):
+#: FLASH_TOL is about as large as a long row's typical output.  On an
+#: H100 every row read 2.0-2.25 ulps, and the reference with one kv tile
+#: cut from the rows that reach it 112-612
+FLASH_ULP_LIMIT = 4.0
 #: (label, B, S, T, H, Hkv, hd, causal, window): gemma3-4b's forward at
 #: (1, 8192) and (2, 2048), local (window 1024) and global; a ragged S;
 #: recurrentgemma-2b's forward (10 heads, 1 KV head, window 2048); and
@@ -199,18 +209,46 @@ def phase_device():
     return smi
 
 
+def smi_reading() -> dict:
+    """One reading of the card's SM clock (MHz), power draw and limit (W)
+    and temperature (C) by ``nvidia-smi``; empty where a field reads
+    "[N/A]"."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
+         "temperature.gpu", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60).stdout.splitlines()
+    try:
+        mhz, watts, limit, temp = (float(x) for x in out[0].split(","))
+    except (IndexError, ValueError):
+        return {}
+    return {"sm_mhz": mhz, "power_w": watts, "power_limit_w": limit,
+            "temp_c": temp}
+
+
+def smi_around(fn):
+    """``fn()`` and the card's readings just before and just after it, so
+    that no other process runs beside a timed window."""
+    before = smi_reading()
+    result = fn()
+    return result, {"before": before, "after": smi_reading()}
+
+
 def phase_build():
+    """Build every kernel library; the registers, stack and spills of each
+    CUDA function by ``-Xptxas -v``, by name."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     results = build.build(["fused_mlp", "maxplus_scan", "price_rows",
                            "rwkv6_scan", "rglru_scan", "flash_attention"])
     print(f"build: {len(results)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s")
+    usage = {}
     for r in results:
         print(f"  {r.name}: {r.path.name} ({r.seconds:.1f} s)")
-        for line in r.log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"    {line.strip()}")
+        for fn, u in build.ptxas_usage(r.log).items():
+            usage[fn] = u
+            print(f"    {fn}: {json.dumps(u)}")
+    return usage
 
 
 def check_fused_mlp(label: str, T: int, D: int, F: int, dtype_name: str,
@@ -306,9 +344,14 @@ def phase_kernels():
     return rows, mp_rows, exact, floor_ms
 
 
-def device_us(fn, kernel_name: str, calls: int = 20):
+def device_us(fn, kernel_name: str, calls: int = 20, per_call=None):
     """Mean device time of ``kernel_name`` per call of ``fn``, from
-    ``torch.profiler`` (None if the profiler saw no such kernel)."""
+    ``torch.profiler`` (None if the profiler saw no such kernel).  With
+    ``per_call``, the number of such kernels one call launches, all
+    alike: the mean per recorded kernel times ``per_call``, which a
+    record the profiler drops does not bias (windows of 5 calls have held
+    4 launches, which the sum over calls reads 20% low); a count other
+    than ``calls * per_call`` is printed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -318,12 +361,17 @@ def device_us(fn, kernel_name: str, calls: int = 20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.events()
+    evs = [e.time_range.elapsed_us() for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA
            and kernel_name in e.name]
     if not evs:
         return None
-    return sum(e.time_range.elapsed_us() for e in evs) / calls
+    if per_call is None:
+        return sum(evs) / calls
+    if len(evs) != calls * per_call:
+        print(f"profile: {len(evs)} {kernel_name} kernels recorded for "
+              f"{calls} calls of {per_call}")
+    return sum(evs) / len(evs) * per_call
 
 
 def launch_floor_ms() -> float:
@@ -542,15 +590,38 @@ def _top_kernel(fn) -> str:
     return max(times, key=times.get)[:120] if times else "not measured"
 
 
+#: flash regime -> suffix of its CUDA function, flash_attention_kernel_*
+FLASH_FUNCTIONS = {"wgmma": "wgmma", "mma": "mma", "cuda_cores": "fp32"}
+
+
+def _ulp_err(out, exp) -> float:
+    """max |out - exp| in bf16 ulps of max(|exp|, the RMS of exp's row
+    over hd): an element near 0 takes its row's scale, to which the
+    products' rounding is relative."""
+    import torch
+    scale = torch.maximum(exp.abs(), exp.pow(2).mean(-1, keepdim=True).sqrt())
+    _, e = torch.frexp(scale)            # scale = m 2^e, m in [0.5, 1)
+    ulp = torch.ldexp(torch.ones_like(scale), e - 8)
+    return float(((out - exp).abs() / ulp).max())
+
+
 def check_flash(label: str, B: int, S: int, T: int, H: int, Hkv: int,
-                hd: int, causal: bool, window: int, dtype_name: str):
-    """One shape: the flash kernel (model layout, ``attention_op``)
-    against its plain version, with times, the bound and
-    ``scaled_dot_product_attention`` as the yardstick."""
+                hd: int, causal: bool, window: int, dtype_name: str,
+                usage: dict):
+    """One shape: the flash kernel (model layout, ``attention_op``) in
+    its regime against the plain version, called twice and required to
+    give the same bits, with its registers and spills (from ``usage``),
+    its time by CUDA events and by the profiler, the card's readings
+    around each timing window, the bound and
+    ``scaled_dot_product_attention`` as the yardstick.  bf16 rows are
+    also held to ``FLASH_ULP_LIMIT`` ulps; on causal rows the reading of
+    the reference with the oldest kv tile (64 keys) cut from the rows
+    that reach it shows that this limit sees such a fault."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (_mask, attention_op,
-                                                     attention_op_ref)
+                                                     attention_op_ref,
+                                                     choose_regime)
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(B * 100000 + S + T + hd)
@@ -559,15 +630,37 @@ def check_flash(label: str, B: int, S: int, T: int, H: int, Hkv: int,
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     q, k, v = rnd(B, S, H, hd), rnd(B, T, Hkv, hd), rnd(B, T, Hkv, hd)
-    out = attention_op(q, k, v, causal=causal, window=window)
     exp = attention_op_ref(q, k, v, causal=causal, window=window)
+
+    def kernel():
+        return attention_op(q, k, v, causal=causal, window=window)
+
+    regime = choose_regime(dtype, hd)
+    out = kernel()
+    repeatable = bool(torch.equal(out, kernel()))
     torch.cuda.synchronize()
-    check(out.dtype == dtype and out.shape == (B, S, H, hd),
+    check(out.dtype == q.dtype and out.shape == q.shape,
           f"flash_attention {label}: {out.dtype} {tuple(out.shape)}")
+    check(repeatable, f"flash_attention {label} {dtype_name}: two calls "
+                      "gave different bits")
     tol = FLASH_TOL[dtype_name]
     err, ok = _norm_err(out.float(), exp.float(), tol)
     ok = ok and bool(torch.isfinite(out).all())
+    ulp_err = fault_ulp = None
+    if dtype == torch.bfloat16:
+        ulp_err = _ulp_err(out.float(), exp.float())
+        if causal:
+            cut = min(window if window > 0 else S, S) - 64
+            fault = attention_op_ref(q, k, v, causal=True, window=cut)
+            fault_ulp = _ulp_err(fault.float(), exp.float())
+            del fault
     del exp
+    fn_name = f"flash_attention_kernel_{FLASH_FUNCTIONS[regime]}<{hd}>"
+    ms, clocks_events = smi_around(
+        lambda: time_ms(kernel, torch.cuda.synchronize))
+    dev_us, clocks_profiler = smi_around(
+        lambda: device_us(kernel, MODEL_KERNELS["flash_attention"], calls=5,
+                          per_call=1))
     # the yardstick: one PyTorch call, (B, H, S, hd) views, GQA inside
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = (_mask(S, T, causal, window, "cuda") if window > 0 else None)
@@ -587,12 +680,13 @@ def check_flash(label: str, B: int, S: int, T: int, H: int, Hkv: int,
     row = {"shape": label, "B": B, "S": S, "T": T, "H": H, "Hkv": Hkv,
            "hd": hd, "causal": causal, "window": window,
            "dtype": dtype_name, "admitted_pairs_per_head": B * pairs,
-           "max_abs_err": err, "tol": tol, "ok": ok,
-           "ms": time_ms(lambda: attention_op(q, k, v, causal=causal,
-                                              window=window), sync),
-           "device_ms": _us_to_ms(device_us(
-               lambda: attention_op(q, k, v, causal=causal, window=window),
-               "flash_attention_tile_kernel", calls=5)),
+           "regime": regime, "function": fn_name,
+           "ptxas": usage.get(fn_name), "max_abs_err": err, "tol": tol,
+           "ulp_err": ulp_err, "ulp_limit": FLASH_ULP_LIMIT,
+           "edge_tile_fault_ulp": fault_ulp, "ok": ok,
+           "repeatable": repeatable, "ms": ms,
+           "device_ms": _us_to_ms(dev_us), "clocks_events": clocks_events,
+           "clocks_profiler": clocks_profiler,
            "plain_ms": time_ms(lambda: attention_op_ref(
                q, k, v, causal=causal, window=window), sync),
            "bound_ms": bound_ms, "bound_by": bound_by,
@@ -602,12 +696,20 @@ def check_flash(label: str, B: int, S: int, T: int, H: int, Hkv: int,
     print("flash_attention " + json.dumps(row))
     check(ok, f"flash_attention {label} {dtype_name}: max err {err:.3g} "
               f"above tol {tol}")
+    if ulp_err is not None:
+        check(ulp_err <= FLASH_ULP_LIMIT,
+              f"flash_attention {label} bfloat16: {ulp_err:.3g} ulps above "
+              f"the limit {FLASH_ULP_LIMIT}")
+    if fault_ulp is not None:
+        check(fault_ulp > FLASH_ULP_LIMIT,
+              f"flash_attention {label}: a cut edge tile reads "
+              f"{fault_ulp:.3g} ulps, within the limit {FLASH_ULP_LIMIT}")
     return row
 
 
-def phase_flash():
+def phase_flash(usage: dict):
     """The flash kernel at the model paths' shapes, bf16 and float32."""
-    return [check_flash(*shape, dt) for shape in FLASH_SHAPES
+    return [check_flash(*shape, dt, usage) for shape in FLASH_SHAPES
             for dt in ("bfloat16", "float32")]
 
 
@@ -870,7 +972,7 @@ def phase_simulate(plans):
 #: kernel's CUDA function (as the profiler reports it)
 MODEL_KERNELS = {"fused_mlp": "fused_mlp_kernel", "wkv6": "wkv6_kernel",
                  "rglru_chunked": "rglru_kernel",
-                 "flash_attention": "flash_attention_tile_kernel"}
+                 "flash_attention": "flash_attention_kernel"}
 
 
 def _model_kernels():
@@ -1420,10 +1522,10 @@ def main() -> None:
 
     t_start = time.perf_counter()
     smi = phase_device()
-    phase_build()
+    usage = phase_build()
     rows, mp_rows, mp_exact, floor_ms = phase_kernels()
     wkv_rows, rg_rows = phase_recurrence_kernels(floor_ms)
-    flash_rows = phase_flash()
+    flash_rows = phase_flash(usage)
     serves, forwards = phase_models()
     serve = serves["qwen2.5-3b"]
     plan, plans, recorded = phase_planner()
@@ -1490,17 +1592,23 @@ def main() -> None:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
     # flash attention: the main row is gemma3-4b's local layer (28 of its
-    # 34) at the forward's (1, 8192), bf16; launches from that forward
-    fl = next(r for r in flash_rows
-              if r["shape"] == "local-8192" and r["dtype"] == "bfloat16")
+    # 34) at the forward's (1, 8192), bf16, its global layer (6 of 34)
+    # beside it; launches from that forward
+    fl, gl = (next(r for r in flash_rows
+                   if r["shape"] == shape and r["dtype"] == "bfloat16")
+              for shape in ("local-8192", "global-8192"))
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:69",
         "launches": forwards["gemma3-4b"]["launches"]["flash_attention"],
         "max_abs_err": fl["max_abs_err"], "ms": fl["ms"],
+        "device_ms": fl["device_ms"],
         "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
-        "bound_by": fl["bound_by"], "library_ms": fl["library_ms"]})
+        "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
+        "global_ms": gl["ms"], "global_device_ms": gl["device_ms"],
+        "global_plain_ms": gl["plain_ms"], "global_bound_ms": gl["bound_ms"],
+        "global_library_ms": gl["library_ms"], "regime": fl["regime"]})
     record = {"card": smi, "kernels": kernels, "fused_mlp_rows": rows,
               "maxplus_rows": mp_rows, "maxplus_exact": mp_exact,
               "price_rows_rows": pr_rows, "wkv6_rows": wkv_rows,

@@ -12,11 +12,12 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Iterable, List
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -92,6 +93,42 @@ def build(names: Iterable[str]) -> List[BuildResult]:
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return results
+
+
+def _demangle(names: List[str]) -> List[str]:
+    """C++ names through ``c++filt`` where the host has it, else as
+    given; each cut to its qualified name and template arguments."""
+    tool = shutil.which("c++filt")
+    if tool and names:
+        out = subprocess.run([tool], input="\n".join(names), text=True,
+                             capture_output=True, check=True).stdout
+        names = out.splitlines()
+    return [re.sub(r"^.*?(\w+(<[^()]*>)?)\(.*$", r"\1", n) for n in names]
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """Registers, stack and spills of each CUDA function in an ``nvcc
+    -Xptxas -v`` log, by demangled name (``flash_attention_kernel_mma<256>``).
+    """
+    usage: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = usage.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and current is not None:
+            current.update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+            current = None
+    return dict(zip(_demangle(list(usage)), usage.values()))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -4,7 +4,10 @@ Online-softmax attention with causal and sliding-window masks: the CUDA
 kernel in ``csrc/flash_attention.cu`` keeps the query tile, the running
 max and sum and the fp32 accumulator on chip for the whole kv sweep and
 visits only the kv tiles the masks can admit; the source's header says
-what bounds it.  Two entry points share the kernel:
+what bounds it.  ``choose_regime`` names its regime from the dtype and
+head size: bfloat16 runs QK^T and PV on the tensor cores with fp32
+accumulation (``wgmma`` from hd = 64, ``mma.sync`` below), float32 on
+the CUDA cores in fp32.  Two entry points share the kernel:
 
 * ``flash_attention(q, k, v, causal=, window=)`` in the reference's
   layout, q (BH, S, hd) and k/v (BH, T, hd);
@@ -35,8 +38,31 @@ from . import build
 #: the reference kernel's masked score (``flash_attention.py:23``)
 NEG_INF = -1e30
 
-#: kernel dtype codes of ``flash_attention_launch``
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head sizes one launch takes
+HEAD_SIZES = (16, 32, 64, 128, 256)
+
+#: kernel regime codes of ``flash_attention_launch``
+_REGIMES = {"cuda_cores": 0, "mma": 1, "wgmma": 2}
+
+#: the smallest head size of the ``wgmma`` regime (one 128-byte row)
+WGMMA_MIN_HD = 64
+
+
+def choose_regime(dtype: torch.dtype, hd: int) -> str:
+    """The kernel regime of a call: for bfloat16 the tensor cores,
+    ``"wgmma"`` from ``WGMMA_MIN_HD`` and ``"mma"`` (``mma.sync``) below;
+    ``"cuda_cores"`` for float32 (fp32 products: TF32 would leave the
+    reference's 3e-4).  Raises for another dtype or a head size the
+    kernel does not take."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash attention takes float32 or bfloat16, not "
+                        f"{dtype}")
+    if hd not in HEAD_SIZES:
+        raise ValueError(f"head size {hd} is not one of the kernel's "
+                         f"{', '.join(map(str, HEAD_SIZES))}")
+    if dtype == torch.float32:
+        return "cuda_cores"
+    return "wgmma" if hd >= WGMMA_MIN_HD else "mma"
 
 
 def _mask(S: int, T: int, causal: bool, window: int,
@@ -86,8 +112,6 @@ def _library() -> ctypes.CDLL:
         p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, ll, ll, ll, i, i,
         ctypes.c_float, p]
     lib.flash_attention_launch.restype = i
-    lib.flash_attention_supports_hd.argtypes = [i]
-    lib.flash_attention_supports_hd.restype = i
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -98,7 +122,8 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor,
     """Device, dtype, contiguity and alignment checks of a CUDA call."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if (q.dtype not in (torch.float32, torch.bfloat16)
+            or k.dtype != q.dtype or v.dtype != q.dtype):
         raise TypeError(f"{name} takes float32 or bfloat16 inputs of one "
                         f"dtype, got {[t.dtype for t in (q, k, v)]}")
     if not all(t.is_contiguous() for t in (q, k, v)):
@@ -109,15 +134,13 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor,
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             batch: int, heads: int, group: int, S: int, T: int, hd: int,
-            q_strides, k_strides, causal: bool, window: int
-            ) -> torch.Tensor:
-    lib = _library()
-    if not lib.flash_attention_supports_hd(hd):
-        raise ValueError(f"head size {hd} is not one of the kernel's "
-                         "16, 32, 64, 128, 256")
-    if batch > 65535 or heads > 65535:
+            q_strides, k_strides, causal: bool,
+            window: int) -> torch.Tensor:
+    regime = choose_regime(q.dtype, hd)
+    if regime == "cuda_cores" and (batch > 65535 or heads > 65535):
         raise ValueError(f"batch {batch} or heads {heads} exceeds one "
                          "launch's 65535")
+    lib = _library()
     if window > S:
         window = S                 # i - j < S holds for every key
     out = torch.empty_like(q)
@@ -125,7 +148,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], batch, heads, group, S, T, hd, *q_strides,
+            _REGIMES[regime], batch, heads, group, S, T, hd, *q_strides,
             *k_strides, int(causal), int(window), hd ** -0.5, stream)
     if err != 0:
         raise RuntimeError("flash_attention launch failed: "

@@ -111,6 +111,23 @@ def test_flash_attention_any_length_matches_oracle(S, T, causal, window):
 # ---------------------------------------------------------------------------
 
 
+def _gqa_oracle(jq, jk, jv, *, causal, window):
+    """``ref.attention_ref`` on (B H, S, hd) with the kv heads repeated
+    for their group, back in the model's (B, S, H, hd) layout."""
+    B, S, H, hd = jq.shape
+    T, Hkv = jk.shape[1], jk.shape[2]
+
+    def heads_first(a):
+        n = a.shape[1]
+        a = jnp.repeat(a, H // a.shape[2], axis=2)
+        return jnp.transpose(a, (0, 2, 1, 3)).reshape(B * H, n, hd)
+
+    out = jax_ref.attention_ref(heads_first(jq), heads_first(jk),
+                                heads_first(jv), causal=causal,
+                                window=window)
+    return jnp.transpose(out.reshape(B, H, S, hd), (0, 2, 1, 3))
+
+
 @pytest.mark.parametrize("window", [0, 5])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_op_gqa_matches_reference(window, dtype):
@@ -131,19 +148,37 @@ def test_attention_op_gqa_matches_reference(window, dtype):
                                dtype=jd)
     sdpa = jax_layers._sdpa(jq, jk, jv, jnp.broadcast_to(mask, (B, S, S)),
                             jcfg)
-    G = H // Hkv
-
-    def heads_first(a, n):
-        return jnp.transpose(a, (0, 2, 1, 3)).reshape(B * n, S, hd)
-
-    oracle = jax_ref.attention_ref(
-        heads_first(jq, H), heads_first(jnp.repeat(jk, G, axis=2), H),
-        heads_first(jnp.repeat(jv, G, axis=2), H), causal=True,
-        window=window)
-    oracle = jnp.transpose(oracle.reshape(B, H, S, hd), (0, 2, 1, 3))
+    oracle = _gqa_oracle(jq, jk, jv, causal=True, window=window)
     for want in (sdpa, oracle):
         np.testing.assert_allclose(_np(got), _np(want), atol=_TOL[dtype],
                                    rtol=_TOL[dtype])
+
+
+@pytest.mark.parametrize("B,S,T,H,Hkv,causal,window", [
+    (1, 200, 200, 8, 8, True, 0),         # group 1, S not a multiple of 128
+    (2, 133, 200, 10, 1, True, 77),       # group 10, T > S, a window edge
+                                          # inside a 64-key tile
+    (1, 257, 129, 4, 2, False, 0),        # not causal, T < S
+    (1, 130, 130, 4, 4, False, 40),       # windowed, not causal
+    (1, 300, 100, 4, 2, True, 64),        # rows with no admitted key
+    (2, 129, 129, 8, 4, True, 0)])        # one row past a query tile
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_op_matches_reference_at_tile_edges(B, S, T, H, Hkv,
+                                                      causal, window, dtype):
+    """The shapes whose edges the tensor-core kernel's tiles (128 query
+    rows, 64 keys) cut, on the CPU: ``attention_op`` against the JAX
+    oracle with the kv heads repeated."""
+    hd = 16
+    q = _draw(B, S, H, hd, seed=S + T)
+    k, v = (_draw(B, T, Hkv, hd, seed=S + T + s) for s in (1, 2))
+    td, jd = getattr(torch, dtype), getattr(jnp, dtype)
+    got = attention_op(*(torch.from_numpy(a).to(td) for a in (q, k, v)),
+                       causal=causal, window=window)
+    want = _gqa_oracle(*(jnp.asarray(a, jd) for a in (q, k, v)),
+                       causal=causal, window=window)
+    assert got.dtype == td and got.shape == (B, S, H, hd)
+    np.testing.assert_allclose(_np(got), _np(want), atol=_TOL[dtype],
+                               rtol=_TOL[dtype])
 
 
 def test_attention_op_ref_equals_flash_reference_layout():
@@ -270,3 +305,49 @@ def test_cuda_call_builds_the_kernel_or_raises(monkeypatch):
         fa._library.cache_clear()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# the kernel's regime, and the build log that reports its registers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hd", fa.HEAD_SIZES)
+def test_choose_regime_takes_the_tensor_cores_for_bf16(hd):
+    assert fa.choose_regime(torch.bfloat16, hd) == (
+        "wgmma" if hd >= fa.WGMMA_MIN_HD else "mma")
+    assert fa.choose_regime(torch.float32, hd) == "cuda_cores"
+
+
+@pytest.mark.parametrize("dtype,hd,error", [
+    (torch.bfloat16, 48, ValueError), (torch.float32, 512, ValueError),
+    (torch.bfloat16, 8, ValueError), (torch.float16, 64, TypeError),
+    (torch.float64, 64, TypeError)])
+def test_choose_regime_refuses_what_no_regime_takes(dtype, hd, error):
+    with pytest.raises(error):
+        fa.choose_regime(dtype, hd)
+
+
+def test_ptxas_usage_reads_each_function():
+    mangled = ("_ZN12_GLOBAL__N_126flash_attention_kernel_mmaILi32EEEvPK"
+               "13__nv_bfloat16S3_S3_PS1_iiiixxxxxxiif")
+    log = f"""ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'
+ptxas info    : Function properties for {mangled}
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 12 registers, used 0 barriers
+"""
+    usage = build.ptxas_usage(log)
+    assert len(usage) == 2
+    want = {"stack": 8, "spill_stores": 4, "spill_loads": 4,
+            "registers": 255}
+    # the demangled name where the host has c++filt, else the mangled one
+    assert want in usage.values()
+    assert {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+            "registers": 12} in usage.values()
+    if "flash_attention_kernel_mma<32>" not in usage:
+        assert mangled in usage

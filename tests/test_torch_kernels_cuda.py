@@ -372,13 +372,34 @@ def test_recurrent_models_take_the_kernels_on_the_card(arch):
 _FLASH_TOL = {torch.float32: 3e-4, torch.bfloat16: 3e-2}
 
 
-@pytest.mark.parametrize("B,S,T,H,Hkv,hd,causal,window", [
+_FLASH_SHAPES = [
     (1, 2048, 2048, 8, 4, 256, True, 1024),   # gemma3-4b local
     (1, 1024, 1024, 8, 4, 256, True, 0),      # gemma3-4b global
     (2, 777, 777, 4, 2, 128, True, 100),      # ragged S
     (1, 128, 1500, 16, 16, 64, False, 0),     # cross-attention, T != S
     (1, 300, 100, 4, 2, 32, True, 64),        # rows with no admitted key
-    (2, 24, 24, 4, 2, 16, True, 8)])          # the smoke configs
+    (2, 24, 24, 4, 2, 16, True, 8),           # the smoke configs
+    # the tensor-core regime's edges (128-row query tiles, 64-key tiles):
+    (1, 200, 200, 8, 8, 64, True, 0),         # group 1, S not a multiple
+    (2, 333, 500, 10, 1, 256, True, 77),      # group 10, T > S, window edge
+                                              # inside a kv tile
+    (1, 257, 129, 4, 2, 128, False, 0),       # not causal, T < S
+    (1, 130, 130, 4, 4, 256, False, 40),      # windowed, not causal
+    (1, 600, 200, 4, 2, 256, True, 100),      # rows with no admitted key
+    (2, 129, 129, 8, 4, 256, True, 0)]        # one row past a query tile
+
+
+def _flash_inputs(B, S, T, H, Hkv, hd, dtype, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    return rnd(B, S, H, hd), rnd(B, T, Hkv, hd), rnd(B, T, Hkv, hd)
+
+
+@pytest.mark.parametrize("B,S,T,H,Hkv,hd,causal,window", _FLASH_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(B, S, T, H, Hkv, hd, causal,
                                               window, dtype):
@@ -386,13 +407,7 @@ def test_flash_attention_kernel_matches_plain(B, S, T, H, Hkv, hd, causal,
                                                      attention_op_ref,
                                                      flash_attention)
     _need_card()
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(S + T + hd)
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-
-    q, k, v = rnd(B, S, H, hd), rnd(B, T, Hkv, hd), rnd(B, T, Hkv, hd)
+    q, k, v = _flash_inputs(B, S, T, H, Hkv, hd, dtype, seed=S + T + hd)
     before = flash_attention.launches
     out = attention_op(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -403,6 +418,53 @@ def test_flash_attention_kernel_matches_plain(B, S, T, H, Hkv, hd, causal,
         out.float(), attention_op_ref(q, k, v, causal=causal,
                                       window=window).float(),
         atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,T,H,Hkv,hd,causal,window", [
+    (1, 1024, 1024, 8, 4, 256, True, 0), (2, 333, 500, 10, 1, 256, True, 77),
+    (1, 600, 200, 4, 2, 256, True, 100), (2, 24, 24, 4, 2, 16, True, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_is_bitwise_repeatable(B, S, T, H, Hkv, hd, causal,
+                                               window, dtype):
+    """No atomics: every regime sums in a fixed order, so two calls on the
+    same inputs give the same bits."""
+    from repro_torch.kernels.flash_attention import attention_op
+    _need_card()
+    q, k, v = _flash_inputs(B, S, T, H, Hkv, hd, dtype, seed=3)
+    first = attention_op(q, k, v, causal=causal, window=window)
+    second = attention_op(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_runs_its_regime(hd, dtype):
+    """A bf16 call runs a tensor-core kernel (``wgmma`` from hd = 64,
+    ``mma.sync`` below), a float32 call the CUDA-core one, each as one
+    launch of a ``flash_attention_kernel*`` function."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import (attention_op,
+                                                     choose_regime,
+                                                     flash_attention)
+    _need_card()
+    chosen = choose_regime(dtype, hd)
+    assert (chosen in ("wgmma", "mma")) == (dtype == torch.bfloat16)
+    q, k, v = _flash_inputs(1, 256, 256, 4, 2, hd, dtype, seed=4)
+    attention_op(q, k, v)
+    torch.cuda.synchronize()
+    before = flash_attention.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        attention_op(q, k, v)
+        torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    want = {"wgmma": "flash_attention_kernel_wgmma",
+            "mma": "flash_attention_kernel_mma",
+            "cuda_cores": "flash_attention_kernel_fp32"}[chosen]
+    assert len(names) == 1 and want in names[0], names
 
 
 def test_flash_attention_reference_layout_and_checks():
