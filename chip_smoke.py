@@ -23,7 +23,13 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    (tensor cores, also held to a limit in bf16 ulps) and float32, each
    also called twice and required to give the same bits; just before
    and after each flash timing window, the card's SM clock, power and
-   temperature by ``nvidia-smi``;
+   temperature by ``nvidia-smi``; ``wkv6`` at rwkv6-1.6b's decode (the
+   step regime) and prefill shapes up to one 4096-token prompt (the
+   chunked regime), each row in its regime, called twice and required to
+   give the same bits, its and the plain version's error against the
+   recurrence in float64, and on every chunked row the step kernel's
+   device time on the same inputs (the "before" column), which the
+   chunked kernel must beat;
 4. models, one on the card at a time, each at full width with random
    bf16 weights from a seed: qwen2.5-3b, rwkv6-1.6b, recurrentgemma-2b
    and gemma3-4b each answer 6 requests through ``ServeEngine`` with the
@@ -37,7 +43,11 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    logits against the plain path with its recurrence in float64; their
    kernel-vs-plain comparisons run the same weights in float32 (these
    random-weight nets amplify any difference from layer to layer, see
-   ``_float32_twin``); gemma3-4b runs ``forward`` on a (1, 8192) prompt,
+   ``_float32_twin``) and the kernel path's device time by kernel
+   (``profile_forward``); rwkv6-1.6b also runs the kernel-path
+   ``forward`` on a (1, 4096) prompt, timed and profiled with its launch
+   counts (its correctness at that length is the ``prefill-long`` kernel
+   row's); gemma3-4b runs ``forward`` on a (1, 8192) prompt,
    the reference's chunked-attention length, with one flash launch per
    layer, each layer held against the plain path (``_sdpa_chunked``) in
    float32 and the bf16 logits against the plain path's;
@@ -120,17 +130,24 @@ SIM_RTOL_BIG = 1e-9
 GOLDEN = ROOT / "tests" / "golden" / "xrbench_plans.json"
 
 #: the recurrences' kernel vs plain, the reference suites' tolerances
-#: (tests/test_kernels.py): WKV6 differs in summation order (four partial
-#: sums, fused multiply-adds); RG-LRU should be bit-equal
+#: (tests/test_kernels.py): WKV6's step regime differs in summation order
+#: (four partial sums, fused multiply-adds), its chunked regime also in
+#: carrying the decays as products across a chunk; RG-LRU should be
+#: bit-equal
 WKV6_TOL = 2e-3
 RGLRU_TOL = 1e-4
-#: (label, BH, T, s0, decay): decode = 4 slots x 32 heads, one token;
-#: prefill = 2 prompts x 32 heads of S = 512 (rwkv6-1.6b)
+#: (label, BH, T, s0, decay): decode = 4 slots x 32 heads, one token
+#: (the step regime); prefill = 2 prompts x 32 heads of S = 512
+#: (rwkv6-1.6b), prefill-long one prompt of 4096 tokens (RWKV-6's training
+#: context; the chunked regime); decay None is the model's
+#: exp(-exp(x)), "zeros" the same with some decays underflowed to 0
 WKV6_SHAPES = [("decode", 128, 1, True, None),
                ("prefill", 64, 512, False, None),
                ("prefill-s0", 64, 512, True, None),
                ("ragged", 64, 77, True, None),
-               ("extreme-decay", 64, 128, True, 1e-4)]
+               ("extreme-decay", 64, 128, True, 1e-4),
+               ("zero-decay", 64, 93, True, "zeros"),
+               ("prefill-long", 32, 4096, False, None)]
 #: (label, B, T, h0) at W = 2560 (recurrentgemma-2b)
 RGLRU_SHAPES = [("decode", 4, 1, True), ("prefill", 2, 512, False),
                 ("prefill-h0", 2, 512, True), ("ragged", 3, 77, True)]
@@ -466,9 +483,14 @@ def _norm_err(out, exp, tol: float):
 
 def check_wkv6(label: str, BH: int, T: int, N: int, with_s0: bool,
                floor_ms: float, decay=None):
-    """One shape: the WKV6 kernel against its plain version."""
+    """One shape: the WKV6 kernel in its regime against its plain version,
+    called twice and required to give the same bits; the kernel's and the
+    plain version's error against the recurrence in float64; and on a
+    chunked row the step kernel's device time on the same inputs (the
+    "before" column)."""
     import torch
-    from repro_torch.kernels.rwkv6_scan import wkv6, wkv6_ref
+    from repro_torch.kernels import rwkv6_scan
+    from repro_torch.kernels.rwkv6_scan import choose_regime, wkv6, wkv6_ref
     gen = torch.Generator(device="cuda")
     gen.manual_seed(BH * 1000 + T)
 
@@ -477,18 +499,33 @@ def check_wkv6(label: str, BH: int, T: int, N: int, with_s0: bool,
 
     r, k, v = (rnd(BH, T, N, scale=0.5) for _ in range(3))
     # decays as the model makes them: exp(-exp(decay_raw)), in (0, 1)
-    w = (torch.exp(-torch.exp(rnd(BH, T, N) - 4.0)) if decay is None
-         else torch.full((BH, T, N), decay, device="cuda"))
+    if decay in (None, "zeros"):
+        w = torch.exp(-torch.exp(rnd(BH, T, N) - 4.0))
+        if decay == "zeros":                 # exp(-exp(x)) underflowed
+            w[:, ::3, ::5] = 0.0
+    else:
+        w = torch.full((BH, T, N), decay, device="cuda")
     u = rnd(BH, 1, N, scale=0.3)
     s0 = rnd(BH, N, N, scale=0.2) if with_s0 else None
+    regime = choose_regime(T, N)
     y, s = wkv6(r, k, v, w, u, s0)
+    y2, s2 = wkv6(r, k, v, w, u, s0)
     ye, se = wkv6_ref(r, k, v, w, u, s0)
+    y64, s64 = _wkv6_float64(r, k, v, w, u, s0, exact=True)
     torch.cuda.synchronize()
     check(y.shape == (BH, T, N) and s.shape == (BH, N, N),
           f"wkv6 {label}: {tuple(y.shape)} {tuple(s.shape)}")
+    repeatable = bool(torch.equal(y, y2) and torch.equal(s, s2))
+    check(repeatable, f"wkv6 {label}: two calls gave different bits")
     err_y, ok_y = _norm_err(y, ye, WKV6_TOL)
     err_s, ok_s = _norm_err(s, se, WKV6_TOL)
-    ok = ok_y and ok_s and bool(torch.isfinite(y).all())
+    ok = (ok_y and ok_s and bool(torch.isfinite(y).all())
+          and bool(torch.isfinite(s).all()))
+
+    def f64_err(a, b):
+        return max(float((a.double() - y64).abs().max()),
+                   float((b.double() - s64).abs().max()))
+
     sync = torch.cuda.synchronize
     nbytes = (5 * BH * T * N + BH * N + (2 if with_s0 else 1) * BH * N * N
               ) * 4
@@ -497,18 +534,34 @@ def check_wkv6(label: str, BH: int, T: int, N: int, with_s0: bool,
     # v_j sum_i r_i u_i k_i (5 N)
     bound_ms, bound_by = _bound(nbytes, BH * T * (5 * N * N + 5 * N),
                                 "float32")
+    step_ms = None
+    if regime != "step":
+        step_ms = _us_to_ms(device_us(
+            lambda: rwkv6_scan._launch(r, k, v, w, u, s0, "step"),
+            MODEL_KERNELS["wkv6"], calls=5 if T > 1024 else 20, per_call=1))
     row = {"shape": label, "BH": BH, "T": T, "N": N, "s0": with_s0,
-           "decay": decay, "max_abs_err": max(err_y, err_s),
-           "tol": WKV6_TOL, "ok": ok,
+           "decay": decay, "regime": regime,
+           "value_split": (rwkv6_scan.value_split(
+               BH, N, torch.cuda.get_device_properties(0).multi_processor_count)
+               if regime == "chunked" else None),
+           "max_abs_err": max(err_y, err_s), "tol": WKV6_TOL, "ok": ok,
+           "float64_err": f64_err(y, s), "plain_float64_err": f64_err(ye, se),
+           "repeatable": repeatable,
            "ms": time_ms(lambda: wkv6(r, k, v, w, u, s0), sync),
            "plain_ms": time_ms(lambda: wkv6_ref(r, k, v, w, u, s0), sync),
            "device_ms": _us_to_ms(device_us(
-               lambda: wkv6(r, k, v, w, u, s0), "wkv6_kernel")),
+               lambda: wkv6(r, k, v, w, u, s0), MODEL_KERNELS["wkv6"],
+               per_call=1)),
+           "step_device_ms": step_ms,
            "launch_floor_ms": floor_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": None}
     print("wkv6 " + json.dumps(row))
     check(ok, f"wkv6 {label}: max err {row['max_abs_err']:.3g} above tol "
               f"{WKV6_TOL}")
+    if step_ms is not None:
+        check(row["device_ms"] < step_ms,
+              f"wkv6 {label}: the chunked kernel ({row['device_ms']:.4g} ms) "
+              f"is not faster than the step kernel ({step_ms:.4g} ms)")
     return row
 
 
@@ -1206,9 +1259,9 @@ def _device_time(prof, calls: int, suffix: str = ""):
     return out
 
 
-def _wkv6_float64(r, k, v, w, u, s0=None):
+def _wkv6_float64(r, k, v, w, u, s0=None, exact: bool = False):
     """``wkv6_ref``'s recurrence in float64, rounded to float32 on the
-    way out."""
+    way out (kept in float64 with ``exact``)."""
     import torch
     r, k, v, w, u = (t.double() for t in (r, k, v, w, u))
     BH, T, N = r.shape
@@ -1220,6 +1273,8 @@ def _wkv6_float64(r, k, v, w, u, s0=None):
         ys.append(torch.bmm(r[:, t, None, :],
                             s + u[:, 0, :, None] * kv)[:, 0])
         s = w[:, t, :, None] * s + kv
+    if exact:
+        return torch.stack(ys, dim=1), s
     return torch.stack(ys, dim=1).float(), s.float()
 
 
@@ -1289,6 +1344,7 @@ def forward_arch(arch: str, params, cfg, B: int = 2, S: int = 512):
                 launches = _counts()
         bf16_rel, _ = _rel_logit_diff(logits[True], logits[False], cfg)
         del logits
+        breakdown = profile_forward(params, cfg, toks)
         p32, c32 = _float32_twin(params, cfg)
         kernel_fns = _layer_fns(p32, c32)
         plain_fns = _layer_fns(p32, dataclasses.replace(c32,
@@ -1317,6 +1373,7 @@ def forward_arch(arch: str, params, cfg, B: int = 2, S: int = 512):
               f"expected {per_call}")
     row = {"arch": arch, "B": B, "S": S, "kernel_s": secs[True],
            "plain_s": secs[False], "launches": launches,
+           "profile": breakdown,
            "layer_rel_diff_max": max(layer_rel), "layer_tol": LAYER_TOL,
            "layer_rel_diff": layer_rel, "apart_rel_diff": apart_rel,
            "witness_rel_diff": witness_rel,
@@ -1418,6 +1475,42 @@ def forward_long(arch: str, params, cfg, B: int = 1, S: int = 8192):
     return row
 
 
+def forward_timed(arch: str, params, cfg, B: int = 1, S: int = 4096):
+    """``forward`` at full width on a (B, S) prompt with the kernels only:
+    its host time, its launch counts (one per layer that runs a kernel)
+    and its device time by kernel.  Correctness at this length is held by
+    the kernel rows (``check_wkv6``'s ``prefill-long``); no plain or
+    float64 forward runs here."""
+    import torch
+    from repro_torch.models import forward
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    with torch.inference_mode():
+        forward(params, cfg, toks)                        # warm-up
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        logits, _ = forward(params, cfg, toks)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _counts()
+        check(logits.shape == (B, S, cfg.padded_vocab)
+              and bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+              f"{arch} forward ({B}, {S}): logits "
+              f"{tuple(logits.shape)} not finite or misshapen")
+        del logits
+        breakdown = profile_forward(params, cfg, toks)
+    for name, per_call in _per_call(cfg, forward=True).items():
+        check(launches[name] == per_call,
+              f"{arch} forward ({B}, {S}): {name} launched "
+              f"{launches[name]} times, expected {per_call}")
+    row = {"arch": arch, "B": B, "S": S, "kernel_s": secs,
+           "launches": launches, "profile": breakdown}
+    print("forward " + json.dumps(row))
+    return row
+
+
 def profile_forward(params, cfg, toks):
     """Device time of one kernel-path ``forward`` by ``torch.profiler``:
     the sum of kernel durations, each hand-written kernel's part, and
@@ -1451,6 +1544,8 @@ def phase_models():
         serves[arch] = serve_arch(arch, params, cfg)
         if cfg.arch_kind != "dense":
             forwards[arch] = forward_arch(arch, params, cfg)
+            if cfg.arch_kind == "rwkv":
+                forwards[arch]["long"] = forward_timed(arch, params, cfg)
         elif arch == "gemma3-4b":
             forwards[arch] = forward_long(arch, params, cfg)
         del params
@@ -1591,6 +1686,22 @@ def main() -> None:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    # wkv6's prefill: the chunked regime at rwkv6-1.6b's (2, 512) forward
+    # (its launches from that forward) and at one 4096-token prompt, each
+    # beside the step kernel's device time on the same inputs
+    wk = next(kk for kk in kernels if kk["name"] == "wkv6")
+    for label, key in (("prefill", "prefill"), ("prefill-long", "long")):
+        r = next(r for r in wkv_rows if r["shape"] == label)
+        wk.update({
+            f"{key}_shape": [r["BH"], r["T"], r["N"]],
+            f"{key}_regime": r["regime"], f"{key}_ms": r["ms"],
+            f"{key}_device_ms": r["device_ms"],
+            f"{key}_step_device_ms": r["step_device_ms"],
+            f"{key}_plain_ms": r["plain_ms"],
+            f"{key}_bound_ms": r["bound_ms"],
+            f"{key}_max_abs_err": r["max_abs_err"]})
+    wk["prefill_launches"] = (
+        forwards["rwkv6-1.6b"]["launches"]["wkv6"])
     # flash attention: the main row is gemma3-4b's local layer (28 of its
     # 34) at the forward's (1, 8192), bf16, its global layer (6 of 34)
     # beside it; launches from that forward

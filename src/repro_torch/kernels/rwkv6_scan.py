@@ -5,16 +5,21 @@ Per (batch x head) row, with head size N:
   y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
   S_t = diag(w_t) S_{t-1} + k_t^T v_t,      S_{-1} = s0 (zero by default)
 
-``wkv6`` launches the CUDA kernel in ``csrc/rwkv6_scan.cu`` (one block
-per row, each thread one column of the (N, N) state in registers, one
-step at a time); the source's header says what bounds it.  Unlike the
-reference kernel it takes a starting state ``s0`` (the model's decode
-carries one) and any T (the reference asserts ``T % chunk == 0``).
+``wkv6`` launches the CUDA kernel in ``csrc/rwkv6_scan.cu`` in one of two
+regimes, by ``choose_regime(T, N)``: ``"step"`` below ``CHUNK`` steps
+(every decode call: one block per row, one step at a time) and
+``"chunked"`` from ``CHUNK`` on (the reference's chunked form in chunks
+of 16 steps with the decays as products, none above 1, one block per
+row and slice of ``value_split(BH, N)`` value columns); the source's
+header says what bounds each.  Unlike the reference kernel it takes a
+starting state ``s0`` (the model's decode carries one) and any T (the
+reference asserts ``T % chunk == 0``).
 
 On a CPU tensor the wrapper computes the plain version ``wkv6_ref`` (the
 sequential recurrence of ``repro.kernels.ref.wkv6_ref``, with ``s0``); on
 a CUDA tensor it launches the kernel or raises.  ``wkv6.launches`` counts
-launches.
+launches.  ``wkv6_chunked_ref`` repeats the chunked kernel's arithmetic
+in PyTorch, for the tests.
 """
 from __future__ import annotations
 
@@ -28,6 +33,35 @@ from . import build
 
 #: head sizes the kernel is instantiated for (RWKV-6 uses 64)
 HEAD_SIZES = (32, 64)
+#: steps a chunk of the chunked regime (one m16 tile); shorter calls run
+#: the step regime
+CHUNK = 16
+#: steps a sub-chunk: the kernel sums A's pairs inside one with their
+#: decays, across them as the dot product of two factors
+SUB = 4
+#: value columns a chunked block may own (the kernel's instantiations)
+VALUE_SPLITS = (8, 16, 32)
+_REGIMES = {"step": 0, "chunked": 1}
+
+
+def choose_regime(T: int, N: int) -> str:
+    """The kernel regime of a call: ``"step"`` for T < ``CHUNK`` (decode),
+    ``"chunked"`` from ``CHUNK`` steps on.  Raises for a head size the
+    kernel does not take."""
+    if N not in HEAD_SIZES:
+        raise ValueError(f"wkv6 runs head sizes {HEAD_SIZES}, not N={N}")
+    return "chunked" if T >= CHUNK else "step"
+
+
+def value_split(BH: int, N: int, sms: int) -> int:
+    """Value columns a block of the chunked regime owns on a card of
+    ``sms`` streaming multiprocessors: the smallest of ``VALUE_SPLITS``
+    whose grid of BH N / NV blocks fits one wave (a block of 512 threads
+    takes one SM's registers), else the largest at most N.  A block
+    recomputes its row's decays and A, so fewer, wider blocks repeat less
+    of that work as long as the card stays full."""
+    fits = [nv for nv in VALUE_SPLITS if nv <= N and BH * (N // nv) <= sms]
+    return min(fits) if fits else max(nv for nv in VALUE_SPLITS if nv <= N)
 
 
 def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -48,11 +82,68 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack(ys, dim=1), s
 
 
+def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor,
+                     s0: Optional[torch.Tensor] = None, chunk: int = CHUNK
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked kernel's arithmetic in PyTorch, float32.  Per chunk,
+    with the decays multiplied in order (none above 1, zeros exact): the
+    prefix products P_t = prod_{s<t} w_s and y = (r P) S_in; the
+    strictly-past scores A[t, tau] = sum_i r_t k_tau prod_{tau<s<t} w_s,
+    inside a sub-chunk of ``SUB`` steps with the decays between, across
+    sub-chunks as the dot product of r_t prod_{4a<=s<t} w_s and k_tau
+    prod_{tau<s<4a} w_s (4a the start of t's sub-chunk); the bonus; and
+    the state carried to the next chunk, P_end S + sum_tau k_tau
+    prod_{s>tau} w_s v_tau.  A last chunk shorter than ``chunk`` takes
+    only its own steps."""
+    BH, T, N = r.shape
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    uu = u.float()[:, 0, :]                              # (BH, N)
+    s = (torch.zeros((BH, N, N), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float().clone())
+    ys = []
+    for t0 in range(0, T, chunk):
+        rc, kc, vc, wc = (t[:, t0:t0 + chunk] for t in (r, k, v, w))
+        n = rc.shape[1]
+        ones = torch.ones_like(wc[:, 0])
+        pre = [ones]                                     # prod_{s<t} w_s
+        for t in range(n):
+            pre.append(pre[-1] * wc[:, t])
+        suf = [ones]                                     # prod_{t<s<n} w_s
+        for t in range(n - 2, -1, -1):
+            suf.insert(0, suf[0] * wc[:, t + 1])
+        y = torch.bmm(rc * torch.stack(pre[:n], 1), s)
+        a = torch.zeros((BH, n, n), dtype=torch.float32, device=r.device)
+        for t in range(n):
+            start = t // SUB * SUB
+            loc = ones
+            for s_ in range(start, t):                   # prod_{4a<=s<t}
+                loc = loc * wc[:, s_]
+            sub = ones                                   # prod_{tau<s<4a}
+            for tau in range(t - 1, -1, -1):
+                if tau >= start:                         # inside
+                    dec = ones
+                    for s_ in range(tau + 1, t):
+                        dec = dec * wc[:, s_]
+                    a[:, t, tau] = (rc[:, t] * kc[:, tau] * dec).sum(-1)
+                else:                                    # across
+                    if tau < start - 1:
+                        sub = sub * wc[:, tau + 1]
+                    a[:, t, tau] = ((rc[:, t] * loc) * (kc[:, tau] * sub)
+                                    ).sum(-1)
+        y = y + torch.bmm(a, vc)
+        y = y + (rc * uu[:, None, :] * kc).sum(-1, keepdim=True) * vc
+        ys.append(y)
+        s = (pre[n][:, :, None] * s
+             + torch.bmm((kc * torch.stack(suf, 1)).transpose(1, 2), vc))
+    return torch.cat(ys, dim=1), s
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("rwkv6_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wkv6_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.wkv6_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.wkv6_launch.restype = i
     lib.wkv6_error_string.argtypes = [i]
     lib.wkv6_error_string.restype = ctypes.c_char_p
@@ -91,6 +182,25 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("wkv6 takes contiguous inputs")
     if N not in HEAD_SIZES:
         raise ValueError(f"wkv6 runs head sizes {HEAD_SIZES}, not N={N}")
+    regime = choose_regime(T, N)
+    if regime == "chunked" and any(t.data_ptr() % 16 for t in (r, k, v, w)):
+        raise ValueError("wkv6 takes r, k, v, w aligned to 16 bytes from "
+                         f"T = {CHUNK} on")
+    y, s_last = _launch(r, k, v, w, u, s0, regime)
+    wkv6.launches += 1
+    return y, s_last
+
+
+wkv6.launches = 0
+
+
+def _launch(r, k, v, w, u, s0, regime: str):
+    """One launch of the kernel in ``regime`` on checked CUDA inputs; no
+    launch count.  ``wkv6`` calls it, and ``chip_smoke.py`` times the step
+    kernel on the chunked rows through it."""
+    BH, T, N = r.shape
+    nv = value_split(
+        BH, N, torch.cuda.get_device_properties(r.device).multi_processor_count)
     y = torch.empty_like(r)
     s_last = torch.empty((BH, N, N), dtype=torch.float32, device=r.device)
     lib = _library()
@@ -99,12 +209,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.wkv6_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), None if s0 is None else s0.data_ptr(),
-            y.data_ptr(), s_last.data_ptr(), BH, T, N, stream)
+            y.data_ptr(), s_last.data_ptr(), BH, T, N, _REGIMES[regime], nv,
+            stream)
     if err != 0:
-        raise RuntimeError("wkv6 launch failed: "
+        raise RuntimeError(f"wkv6 {regime} launch failed: "
                            + lib.wkv6_error_string(err).decode())
-    wkv6.launches += 1
     return y, s_last
-
-
-wkv6.launches = 0

@@ -86,7 +86,9 @@ def _wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     r, k, v, w: (B, S, H, N) float32; u: (H, N); s0: (B, H, N, N) or
     None.  Returns y (B, S, H, N) and the last state (B, H, N, N)."""
     B, S, H, N = r.shape
-    rows = [t.transpose(1, 2).reshape(B * H, S, N) for t in (r, k, v, w)]
+    # contiguous for the kernel: with B = 1 the reshape is a strided view
+    rows = [t.transpose(1, 2).reshape(B * H, S, N).contiguous()
+            for t in (r, k, v, w)]
     uu = u.float()[None].expand(B, H, N).reshape(B * H, 1, N)
     s = None if s0 is None else s0.reshape(B * H, N, N)
     fn = wkv6 if use_kernels else wkv6_ref

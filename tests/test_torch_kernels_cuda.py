@@ -250,8 +250,12 @@ def _wkv_inputs(BH, T, N, seed=0, decay=None):
 
     r, k, v = rnd(BH, T, N, scale=0.5), rnd(BH, T, N, scale=0.5), \
         rnd(BH, T, N, scale=0.5)
-    w = (torch.sigmoid(rnd(BH, T, N) - 1.0) * 0.98 + 0.01 if decay is None
-         else torch.full((BH, T, N), decay, device="cuda"))
+    if decay in (None, "zeros"):
+        w = torch.sigmoid(rnd(BH, T, N) - 1.0) * 0.98 + 0.01
+        if decay == "zeros":               # exp(-exp(x)) underflowed to 0
+            w[:, ::3, ::5] = 0.0
+    else:
+        w = torch.full((BH, T, N), decay, device="cuda")
     return r, k, v, w, rnd(BH, 1, N, scale=0.3), rnd(BH, N, N, scale=0.2)
 
 
@@ -261,7 +265,12 @@ def _wkv_inputs(BH, T, N, seed=0, decay=None):
     (64, 512, 64, True, None),
     (6, 77, 64, True, None),           # ragged T
     (2, 128, 32, False, 1e-4),         # extreme decay, head size 32
-    (3, 96, 32, True, None)])
+    (3, 96, 32, True, None),
+    (32, 4096, 64, True, None),        # one 4096-token prompt
+    (4, 16, 64, True, None),           # one chunk, the regime boundary
+    (4, 15, 64, True, None),           # the longest step-regime call
+    (5, 93, 64, True, "zeros"),        # zero decays, ragged T
+    (3, 40, 32, False, "zeros")])
 def test_wkv6_kernel_matches_plain(BH, T, N, with_s0, decay):
     from repro_torch.kernels.rwkv6_scan import wkv6, wkv6_ref
     _need_card()
@@ -273,10 +282,52 @@ def test_wkv6_kernel_matches_plain(BH, T, N, with_s0, decay):
     assert wkv6.launches == before + 1
     assert y.shape == (BH, T, N) and s.shape == (BH, N, N)
     ye, se = wkv6_ref(r, k, v, w, u, s0)
-    assert bool(torch.isfinite(y).all())
-    # summation order only (four partial sums, fused multiply-adds)
+    assert bool(torch.isfinite(y).all() and torch.isfinite(s).all())
+    # the reference suite's tolerance: the step regime differs in summation
+    # order, the chunked one also in carrying the decays as products across
+    # a chunk and in its double-precision sums
     torch.testing.assert_close(y, ye, atol=2e-3, rtol=2e-3)
     torch.testing.assert_close(s, se, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("BH,T,N,decay", [
+    (128, 1, 64, None), (64, 512, 64, None), (6, 77, 64, "zeros"),
+    (2, 128, 32, 1e-4)])
+def test_wkv6_is_bitwise_repeatable(BH, T, N, decay):
+    """No atomics: both regimes sum in a fixed order, so two calls on the
+    same inputs give the same bits."""
+    from repro_torch.kernels.rwkv6_scan import wkv6
+    _need_card()
+    r, k, v, w, u, s0 = _wkv_inputs(BH, T, N, seed=5, decay=decay)
+    first = wkv6(r, k, v, w, u, s0)
+    second = wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("T", [1, 15, 16, 77])
+@pytest.mark.parametrize("N", [32, 64])
+def test_wkv6_runs_its_regime(T, N):
+    """T < 16 runs ``wkv6_kernel_step``, T >= 16 ``wkv6_kernel_chunked``,
+    one launch and one count a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.rwkv6_scan import choose_regime, wkv6
+    _need_card()
+    r, k, v, w, u, s0 = _wkv_inputs(3, T, N, seed=6)
+    wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    before = wkv6.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            wkv6(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+    assert wkv6.launches == before + 3
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    want = f"wkv6_kernel_{choose_regime(T, N)}"
+    # the profiler may drop a record from a window, never add one
+    assert 1 <= len(names) <= 3 and all(want in n for n in names), names
 
 
 @pytest.mark.parametrize("B,T,W,with_h0", [
@@ -319,6 +370,10 @@ def test_recurrence_wrappers_check_inputs():
              u[..., :48].contiguous())
     with pytest.raises(ValueError, match="one device"):
         wkv6(r, k, v, w, u.cpu())
+    # the chunked regime copies 16-byte pieces
+    off = torch.zeros(2 * 16 * 64 + 1, device="cuda")[1:].view(2, 16, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        wkv6(off, off, off, off, u)
     with pytest.raises(TypeError):
         rglru_chunked(w.double(), r.double())
 
@@ -361,6 +416,31 @@ def test_recurrent_models_take_the_kernels_on_the_card(arch):
         assert kernel.launches == before + 14 * n_rec
     torch.testing.assert_close(torch.stack(steps, 1), full, atol=1e-4,
                                rtol=1e-4)
+
+
+def test_rwkv6_forward_of_one_prompt_takes_the_kernel():
+    """One prompt (B = 1, where the model's head-major rows are a strided
+    view until made contiguous) through the chunked regime, ragged T,
+    against the plain path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6_scan import wkv6
+    from repro_torch.models import forward, init_model
+    _need_card()
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b", smoke=True),
+                              dtype=torch.float32, use_kernels=True)
+    params = init_model(cfg, seed=3, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (1, 41), device="cuda",
+                         generator=torch.Generator(device="cuda"))
+    with torch.inference_mode():
+        before = wkv6.launches
+        full, _ = forward(params, cfg, toks)
+        assert wkv6.launches == before + cfg.n_layers
+        plain, _ = forward(params, dataclasses.replace(cfg,
+                                                       use_kernels=False),
+                           toks)
+    torch.testing.assert_close(full, plain, atol=1e-4, rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------
