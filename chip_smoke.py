@@ -29,7 +29,12 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    give the same bits, its and the plain version's error against the
    recurrence in float64, and on every chunked row the step kernel's
    device time on the same inputs (the "before" column), which the
-   chunked kernel must beat;
+   chunked kernel must beat; ``rglru_chunked`` at recurrentgemma-2b's
+   decode (the step regime, bit-equal to ``rglru_ref``) and prefill
+   shapes (the split regime, bit-equal to ``rglru_split_ref``, within
+   the reference suite's tolerance of ``rglru_ref``), the same
+   repeatability, float64 and step-kernel columns; ``maxplus_chunked``
+   at the simulator's row shapes and past one 1024-step tile;
 4. models, one on the card at a time, each at full width with random
    bf16 weights from a seed: qwen2.5-3b, rwkv6-1.6b, recurrentgemma-2b
    and gemma3-4b each answer 6 requests through ``ServeEngine`` with the
@@ -59,7 +64,9 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    then held against the plain version;
 6. simulate: every segment of those plans through
    ``simulate_segment(engine="torch")``, whose max-plus scans all go
-   through the CUDA ``maxplus_chunked``, against ``engine="numpy"``;
+   through the CUDA ``maxplus_chunked``, against ``engine="numpy"``,
+   and one scan's call time through the staged copy beside the same
+   scan through two pageable copies;
 7. small reference: the four smoke configs in float32 on the card,
    decode logits (plain attention) against prefill logits (the flash
    kernel) at every position (the hybrid past its local attention's
@@ -114,9 +121,9 @@ FUSED_MLP_SHAPES = [("decode", 4, 2048, 11008), ("prefill", 256, 2048, 11008),
                     ("prefill-gemma", 8192, 2560, 10240)]
 
 #: the simulator scans one row of T <= 512 bursts (DEFAULT_MAX_BURSTS);
-#: (label, B, T)
+#: a row past one tile of 1024 steps carries between tiles; (label, B, T)
 MAXPLUS_SHAPES = [("path", 1, 512), ("path-353", 1, 353), ("path-9", 1, 9),
-                  ("batch", 64, 512)]
+                  ("batch", 64, 512), ("tiles-1500", 1, 1500)]
 #: max-plus kernel vs plain: fractional inputs, tree-order (kernel) vs
 #: prefix-sum (plain) rounding; integer inputs must be bit-equal
 MAXPLUS_RTOL = 1e-12
@@ -132,8 +139,9 @@ GOLDEN = ROOT / "tests" / "golden" / "xrbench_plans.json"
 #: the recurrences' kernel vs plain, the reference suites' tolerances
 #: (tests/test_kernels.py): WKV6's step regime differs in summation order
 #: (four partial sums, fused multiply-adds), its chunked regime also in
-#: carrying the decays as products across a chunk; RG-LRU should be
-#: bit-equal
+#: carrying the decays as products across a chunk; RG-LRU's step regime
+#: should be bit-equal, its split regime differs in its segments'
+#: carry-ins (bit-equal to ``rglru_split_ref``)
 WKV6_TOL = 2e-3
 RGLRU_TOL = 1e-4
 #: (label, BH, T, s0, decay): decode = 4 slots x 32 heads, one token
@@ -363,7 +371,7 @@ def phase_kernels():
 
 def device_us(fn, kernel_name: str, calls: int = 20, per_call=None):
     """Mean device time of ``kernel_name`` per call of ``fn``, from
-    ``torch.profiler`` (None if the profiler saw no such kernel).  With
+    ``torch.profiler`` (None if three windows saw no such kernel).  With
     ``per_call``, the number of such kernels one call launches, all
     alike: the mean per recorded kernel times ``per_call``, which a
     record the profiler drops does not bias (windows of 5 calls have held
@@ -373,14 +381,19 @@ def device_us(fn, kernel_name: str, calls: int = 20, per_call=None):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e.time_range.elapsed_us() for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and kernel_name in e.name]
+    # a window has now and then come back with no kernel record at all:
+    # such a window is taken again, twice at most
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and kernel_name in e.name]
+        if evs:
+            break
     if not evs:
         return None
     if per_call is None:
@@ -567,9 +580,16 @@ def check_wkv6(label: str, BH: int, T: int, N: int, with_s0: bool,
 
 def check_rglru(label: str, B: int, T: int, W: int, with_h0: bool,
                 floor_ms: float):
-    """One shape: the RG-LRU kernel against its plain version."""
+    """One shape: the RG-LRU kernel in its regime, called twice and
+    required to give the same bits, and bit-equal to the plain version of
+    its regime (``rglru_ref`` for step, ``rglru_split_ref`` for split);
+    within ``RGLRU_TOL`` of ``rglru_ref``; its and the plain version's
+    error against the recurrence in float64; and on a split row the step
+    kernel's device time on the same inputs (the "before" column)."""
     import torch
-    from repro_torch.kernels.rglru_scan import rglru_chunked, rglru_ref
+    from repro_torch.kernels import rglru_scan
+    from repro_torch.kernels.rglru_scan import (choose_regime, rglru_chunked,
+                                                rglru_ref, rglru_split_ref)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(B * 1000 + T + W)
     # decays a_t in (0.05, 0.95) and inputs b_t as the model's are shaped
@@ -578,27 +598,59 @@ def check_rglru(label: str, B: int, T: int, W: int, with_h0: bool,
     b = torch.randn(B, T, W, generator=gen, device="cuda") * 0.5
     h0 = (torch.randn(B, W, generator=gen, device="cuda") if with_h0
           else None)
+    regime = choose_regime(T)
     h, hl = rglru_chunked(a, b, h0)
+    h2, hl2 = rglru_chunked(a, b, h0)
     he, hle = rglru_ref(a, b, h0)
+    hs, hls = rglru_split_ref(a, b, h0) if regime == "split" else (he, hle)
+    h64, _ = _rglru_float64(a, b, h0)
     torch.cuda.synchronize()
     check(h.shape == (B, T, W) and hl.shape == (B, 1, W),
           f"rglru_chunked {label}: {tuple(h.shape)} {tuple(hl.shape)}")
+    repeatable = bool(torch.equal(h, h2) and torch.equal(hl, hl2))
+    bit_equal = bool(torch.equal(h, hs) and torch.equal(hl, hls))
     err, ok = _norm_err(h, he, RGLRU_TOL)
     sync = torch.cuda.synchronize
     nbytes = (3 * B * T * W + (2 if with_h0 else 1) * B * W) * 4
     bound_ms, bound_by = _bound(nbytes, 2 * B * T * W, "float32")
+    step_ms = None
+    if regime != "step":
+        step_ms = _us_to_ms(device_us(
+            lambda: rglru_scan._launch(a, b, h0, "step"),
+            MODEL_KERNELS["rglru_chunked"], per_call=1))
     row = {"shape": label, "B": B, "T": T, "W": W, "h0": with_h0,
+           "regime": regime,
+           "split_plan": (rglru_scan.split_plan(
+               B, T, W, torch.cuda.get_device_properties(0)
+               .multi_processor_count) if regime == "split" else None),
            "max_abs_err": err, "tol": RGLRU_TOL, "ok": ok,
-           "bit_equal": bool(torch.equal(h, he) and torch.equal(hl, hle)),
+           "bit_equal": bit_equal,
+           "bit_equal_to": ("rglru_split_ref" if regime == "split"
+                            else "rglru_ref"),
+           "float64_err": float((h - h64).abs().max()),
+           "plain_float64_err": float((he - h64).abs().max()),
+           "repeatable": repeatable,
            "ms": time_ms(lambda: rglru_chunked(a, b, h0), sync),
            "plain_ms": time_ms(lambda: rglru_ref(a, b, h0), sync),
            "device_ms": _us_to_ms(device_us(
-               lambda: rglru_chunked(a, b, h0), "rglru_kernel")),
+               lambda: rglru_chunked(a, b, h0),
+               MODEL_KERNELS["rglru_chunked"], per_call=1)),
+           "step_device_ms": step_ms,
            "launch_floor_ms": floor_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": None}
     print("rglru_chunked " + json.dumps(row))
+    check(repeatable, f"rglru_chunked {label}: two calls gave different "
+                      "bits")
+    check(bit_equal, f"rglru_chunked {label}: not bit-equal to "
+                     f"{row['bit_equal_to']}")
     check(ok, f"rglru_chunked {label}: max err {err:.3g} above tol "
               f"{RGLRU_TOL}")
+    if regime != "step":
+        check(None not in (row["device_ms"], step_ms)
+              and row["device_ms"] < step_ms,
+              f"rglru_chunked {label}: the split kernel "
+              f"({row['device_ms']} ms) is not faster than the step "
+              f"kernel ({step_ms} ms)")
     return row
 
 
@@ -970,8 +1022,10 @@ def phase_price_rows(recorded, floor_ms: float):
 def phase_simulate(plans):
     """Every segment of the torch-engine plans through the torch
     simulator engine on the card, against the numpy engine (each timed
-    from cold simulator caches)."""
+    from cold simulator caches, then both again in turns); one scan's
+    call time, staged and through pageable copies."""
     import numpy as np
+    import torch
     from repro_torch.core import (PAPER_HW, Topology, sim_cache_clear,
                                   simulate_segment)
     from repro_torch.kernels.maxplus_scan import maxplus_chunked, \
@@ -1003,18 +1057,50 @@ def phase_simulate(plans):
         check(rel <= tol, f"simulate {name} segment {i}: latency "
                           f"{st.latency_cycles} vs {sn.latency_cycles}")
     numpy_s = time.perf_counter() - t0
+
+    def timed(engine):
+        sim_cache_clear()
+        t0 = time.perf_counter()
+        for _, _, seg in segs:
+            simulate_segment(seg, PAPER_HW, Topology.AMP, engine=engine)
+        return time.perf_counter() - t0
+
+    # the first torch pass runs first from whatever the planner left warm:
+    # both engines again, in turns, unchecked
+    again = {"torch": timed("torch"), "numpy": timed("numpy")}
     # what one scan costs the simulator: numpy in, copies, launch, numpy
-    # out, at the path's largest shape
+    # out, at the path's largest shape; beside it the same scan with u and
+    # s copied from pageable memory one by one and h0 filled by a kernel
     u = np.cumsum(np.full(512, 7.0))
     s = np.full(512, 3.0)
-    maxplus_scan(u, s, engine="torch")
-    n_calls = 200
-    t0 = time.perf_counter()
-    for _ in range(n_calls):
-        maxplus_scan(u, s, engine="torch")
-    scan_call_ms = (time.perf_counter() - t0) / n_calls * 1e3
+
+    def pageable():
+        d = torch.device("cuda")
+        return maxplus_chunked(
+            torch.from_numpy(u[None]).to(d), torch.from_numpy(s[None]).to(d),
+            torch.full((1,), -math.inf, dtype=torch.float64, device=d)
+        ).cpu().numpy()
+
+    def call_ms(fn, n_calls=200):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            fn()
+        return (time.perf_counter() - t0) / n_calls * 1e3
+
+    def staged():
+        return maxplus_scan(u, s, engine="torch")
+
+    check(np.array_equal(staged(), pageable()[0]),
+          "maxplus_scan: the staged and pageable paths differ")
+    # in turns, so drift on the host weighs on both alike
+    scan_call_ms, pageable_ms = call_ms(staged), call_ms(pageable)
+    scan_call_ms2, pageable_ms2 = call_ms(staged), call_ms(pageable)
     out = {"segments": len(segs), "scans": scans, "launches": launches,
-           "torch_s": dt, "numpy_s": numpy_s, "scan_call_ms": scan_call_ms,
+           "torch_s": dt, "numpy_s": numpy_s,
+           "torch_s_again": again["torch"], "numpy_s_again": again["numpy"],
+           "scan_call_ms": min(scan_call_ms, scan_call_ms2),
+           "pageable_scan_call_ms": min(pageable_ms, pageable_ms2),
            "max_rel_latency_diff": worst,
            "over_2pow24": sum(s.latency_cycles > 2 ** 24 for s in sims)}
     print("simulate " + json.dumps(out))
@@ -1666,6 +1752,7 @@ def main() -> None:
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": ref, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
     # the recurrences: no single PyTorch call computes either (a matrix-
@@ -1684,6 +1771,7 @@ def main() -> None:
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": ref, "launches": serves[arch]["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
     # wkv6's prefill: the chunked regime at rwkv6-1.6b's (2, 512) forward
@@ -1702,6 +1790,21 @@ def main() -> None:
             f"{key}_max_abs_err": r["max_abs_err"]})
     wk["prefill_launches"] = (
         forwards["rwkv6-1.6b"]["launches"]["wkv6"])
+    # rglru_chunked's prefill: the split regime at recurrentgemma-2b's
+    # (2, 512) forward (its launches from that forward), beside the step
+    # kernel's device time on the same inputs
+    rg = next(kk for kk in kernels if kk["name"] == "rglru_chunked")
+    r = next(r for r in rg_rows if r["shape"] == "prefill")
+    rg.update({
+        "prefill_shape": [r["B"], r["T"], r["W"]],
+        "prefill_regime": r["regime"], "prefill_ms": r["ms"],
+        "prefill_device_ms": r["device_ms"],
+        "prefill_step_device_ms": r["step_device_ms"],
+        "prefill_plain_ms": r["plain_ms"],
+        "prefill_bound_ms": r["bound_ms"],
+        "prefill_max_abs_err": r["max_abs_err"],
+        "prefill_launches": (
+            forwards["recurrentgemma-2b"]["launches"]["rglru_chunked"])})
     # flash attention: the main row is gemma3-4b's local layer (28 of its
     # 34) at the forward's (1, 8192), bf16, its global layer (6 of 34)
     # beside it; launches from that forward

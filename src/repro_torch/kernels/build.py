@@ -4,10 +4,12 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into ``_build/lib<name>-<digest>.so`` at first use (the digest
 covers the sources and flags, so an edit rebuilds).  The build runs on
 the machine with the card; nothing is compiled at import time, so the
-CPU tests import every module without ``nvcc``.
+CPU tests import every module without ``nvcc``.  ``on_device`` and
+``launch_stream`` serve the wrappers' launch paths.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -18,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -138,3 +142,22 @@ def load(name: str) -> ctypes.CDLL:
     if not path.exists():
         build([name])
     return ctypes.CDLL(str(path))
+
+
+def on_device(device: torch.device):
+    """``torch.cuda.device(device)`` where ``device`` (a tensor's, with its
+    index) is not the current device, else no context: a launch on the
+    current device (the common case) skips the two device switches."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def launch_stream(device: torch.device) -> int:
+    """The handle of ``device``'s (a tensor's, with its index) current
+    CUDA stream, for a launch.
+    ``torch.cuda.current_stream(device).cuda_stream`` builds a ``Stream``
+    object on every call, several microseconds of a launch path whose
+    kernel takes one or two; this reads the handle as PyTorch's own
+    generated kernels' launchers do."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -12,15 +12,19 @@ absorb loop).  Within a chunk the scan has a cumulative-sum closed form:
   P_t = sum_{sigma<=t} s_sigma   (inclusive).
 
 ``maxplus_chunked`` launches the CUDA kernel in ``csrc/maxplus_scan.cu``
-(one warp per row, a warp scan over the semiring pairs inside each
-32-element chunk, the carry in a register); on a CPU tensor it computes
-the plain version ``maxplus_chunked_ref`` (the closed form above), on a
-CUDA tensor it launches the kernel or raises.
-``maxplus_chunked.launches`` counts launches.
+(one block of 128 threads a row, up to 8 consecutive steps a thread, a
+block-wide scan over the semiring pairs in tiles of up to 1024 steps, the
+carry between tiles in shared memory); the source's header says what
+bounds it: launch latency, not bytes.  On a CPU tensor it computes the plain version
+``maxplus_chunked_ref`` (the closed form above), on a CUDA tensor it
+launches the kernel or raises.  ``maxplus_chunked.launches`` counts
+launches.
 
 Engines (``maxplus_scan(..., engine=...)``):
 
-  * ``"torch"`` — ``maxplus_chunked`` on ``device`` (default ``cuda``).
+  * ``"torch"`` — ``maxplus_chunked`` on ``device`` (default ``cuda``):
+    u, s and h0 packed into one staging tensor (pinned for the card), one
+    copy to the card, one launch on addresses inside it, one copy back.
   * ``"numpy"`` — the closed form in numpy.
   * ``"auto"``  — ``REPRO_MAXPLUS_ENGINE`` (``torch`` or ``numpy``), else
     ``"torch"``: never quietly numpy when there is no card.
@@ -104,35 +108,46 @@ def maxplus_chunked(u: torch.Tensor, s: torch.Tensor,
     if h0.numel() != B or h0.ndim not in (1, 2):
         raise ValueError(f"h0 must be (B,) or (B, 1) with B={B}, got "
                          f"{tuple(h0.shape)}")
-    tensors = (u, s, h0)
-    if any(t.device != u.device for t in tensors):
+    # the checks are written out, not looped: each is on the launch path
+    dev = u.device
+    if s.device != dev or h0.device != dev:
         raise ValueError("maxplus_chunked inputs must lie on one device")
-    if any(t.dtype != torch.float64 for t in tensors):
+    f64 = torch.float64
+    if u.dtype != f64 or s.dtype != f64 or h0.dtype != f64:
         raise TypeError("maxplus_chunked takes float64 inputs, got "
-                        f"{[t.dtype for t in tensors]}")
-    if u.device.type == "cpu":
+                        f"{[t.dtype for t in (u, s, h0)]}")
+    if dev.type == "cpu":
         return maxplus_chunked_ref(u, s, h0)
-    if u.device.type != "cuda":
-        raise ValueError(f"maxplus_chunked runs on cuda or cpu, not "
-                         f"{u.device}")
-    if not all(t.is_contiguous() for t in tensors):
+    if dev.type != "cuda":
+        raise ValueError(f"maxplus_chunked runs on cuda or cpu, not {dev}")
+    if not (u.is_contiguous() and s.is_contiguous()
+            and h0.is_contiguous()):
         raise ValueError("maxplus_chunked takes contiguous inputs")
     out = torch.empty_like(u)
     if u.numel() == 0:
         return out
+    return _launch(dev, u.data_ptr(), s.data_ptr(), h0.data_ptr(), out)
+
+
+maxplus_chunked.launches = 0
+
+
+def _launch(dev: torch.device, u: int, s: int, h0: int,
+            out: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel on ``dev`` over the float64 rows at
+    addresses ``u``, ``s`` and ``h0``, into ``out`` (B, T); counts it.
+    ``maxplus_chunked`` calls it on checked tensors, ``maxplus_scan`` on
+    its staging tensor."""
+    B, T = out.shape
     lib = _library()
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = lib.maxplus_launch(u.data_ptr(), s.data_ptr(), h0.data_ptr(),
-                                 out.data_ptr(), B, T, stream)
+    with build.on_device(dev):
+        err = lib.maxplus_launch(u, s, h0, out.data_ptr(), B, T,
+                                 build.launch_stream(dev))
     if err != 0:
         raise RuntimeError("maxplus_chunked launch failed: "
                            + lib.maxplus_error_string(err).decode())
     maxplus_chunked.launches += 1
     return out
-
-
-maxplus_chunked.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -178,8 +193,28 @@ def maxplus_scan(u, s, h0: float = -math.inf, engine: str = "auto",
         out = np.stack([_maxplus_numpy(u[b], s[b], h0) for b in range(B)])
         return out[0] if squeeze else out
     dev = resolve_device(device)
-    ut = torch.from_numpy(np.ascontiguousarray(u)).to(dev)
-    st = torch.from_numpy(np.ascontiguousarray(s)).to(dev)
-    h = torch.full((B,), h0, dtype=torch.float64, device=dev)
-    out = maxplus_chunked(ut, st, h).cpu().numpy()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"maxplus_scan runs on cuda or cpu, not {dev}")
+    # u, s and h0 in one staging tensor [u | pad | s | h0], pinned for the
+    # card; the pad (where B T is odd) keeps s 16-byte aligned for the
+    # kernel's double2 loads
+    n = B * T
+    off = n + (n & 1)
+    stage = torch.empty(off + n + B, dtype=torch.float64,
+                        pin_memory=dev.type == "cuda")
+    host = stage.numpy()
+    host[:n] = u.reshape(-1)
+    host[off:off + n] = s.reshape(-1)
+    host[off + n:] = h0
+    if dev.type == "cpu":
+        out = maxplus_chunked(stage[:n].view(B, T),
+                              stage[off:off + n].view(B, T), stage[off + n:])
+    else:
+        # one copy to the card, and the launch on addresses inside it: the
+        # staged rows need neither the wrapper's checks nor views
+        d = stage.to(dev, non_blocking=True)
+        p = d.data_ptr()
+        out = _launch(d.device, p, p + 8 * off, p + 8 * (off + n),
+                      d.new_empty((B, T)))
+    out = out.cpu().numpy()
     return out[0] if squeeze else out

@@ -3,16 +3,27 @@
   h_t = a_t * h_{t-1} + b_t      (per batch row and channel),
   h_{-1} = h0 (zero by default)
 
-``rglru_chunked`` launches the CUDA kernel in ``csrc/rglru_scan.cu`` (one
-thread per row and channel, h in a register along T); the source's
-header says what bounds it.  Unlike the reference kernel it takes a
-starting state ``h0`` (the model's decode carries one) and any T (the
-reference asserts ``T % chunk == 0``).
+``rglru_chunked`` launches the CUDA kernel in ``csrc/rglru_scan.cu`` in
+one of two regimes, by ``choose_regime(T)``: ``"step"`` below
+``SPLIT_MIN`` steps (every decode call: one thread per row and channel,
+h in a register along T) and ``"split"`` from ``SPLIT_MIN`` on (T cut
+into segments of ``SEG_LEN`` steps, one warp's lanes along channels a
+segment, each segment folded into a pair (A, B) whose carries cross the
+segments in shared memory, then rerun from its carry-in;
+``split_plan(B, T, W, sms)`` sizes the channel group and the segments).
+The step regime is bound by the launch at T = 1, the split regime by
+bytes plus one tile's latency chain; the source's header says more.
+Unlike the reference kernel it takes a starting state ``h0`` (the
+model's decode carries one) and any T (the reference asserts
+``T % chunk == 0``).
 
 On a CPU tensor the wrapper computes the plain version ``rglru_ref`` (the
 sequential recurrence of ``repro.kernels.ref.rglru_ref``, with ``h0``); on
 a CUDA tensor it launches the kernel or raises.
-``rglru_chunked.launches`` counts launches.
+``rglru_chunked.launches`` counts launches.  The step regime is bit-equal
+to ``rglru_ref``; the split regime rounds its carry-ins differently and
+is bit-equal to ``rglru_split_ref``, which repeats its arithmetic in
+PyTorch.
 """
 from __future__ import annotations
 
@@ -23,6 +34,41 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
+
+#: calls of fewer steps (every decode call) run the step regime
+SPLIT_MIN = 64
+#: steps a segment of the split regime (2 SEG_LEN registers of a thread)
+SEG_LEN = 16
+#: segments a tile of the split regime (a block's threads along T)
+MAX_SEGMENTS = 16
+#: split blocks an SM holds, by channel group (the kernel's launch bounds:
+#: 1024 threads' worth, 64 registers a thread), widest group first; 32
+#: channels are one warp's 128-byte line a step
+BLOCKS_PER_SM = {32: 2, 16: 4}
+_REGIMES = {"step": 0, "split": 1}
+
+
+def choose_regime(T: int) -> str:
+    """The kernel regime of a call: ``"step"`` for T < ``SPLIT_MIN``
+    (decode), ``"split"`` from ``SPLIT_MIN`` steps on."""
+    return "split" if T >= SPLIT_MIN else "step"
+
+
+def segments(T: int) -> int:
+    """Segments a tile of the split regime: as many of ``SEG_LEN`` steps
+    as cover T, at most ``MAX_SEGMENTS`` (longer T loops over tiles)."""
+    return min(MAX_SEGMENTS, -(-T // SEG_LEN))
+
+
+def split_plan(B: int, T: int, W: int, sms: int) -> Tuple[int, int]:
+    """(channel group, segments a tile) of a split launch on a card of
+    ``sms`` streaming multiprocessors: the widest group whose grid of
+    B ceil(W / group) blocks fills one wave (``sms`` times the blocks an
+    SM holds, ``BLOCKS_PER_SM``), else the narrowest, whose smaller
+    blocks spread the work over more SMs; and ``segments(T)``."""
+    groups = list(BLOCKS_PER_SM)
+    fits = [g for g in groups if B * -(-W // g) >= sms * BLOCKS_PER_SM[g]]
+    return (fits[0] if fits else groups[-1]), segments(T)
 
 
 def rglru_ref(a: torch.Tensor, b: torch.Tensor,
@@ -40,22 +86,67 @@ def rglru_ref(a: torch.Tensor, b: torch.Tensor,
     return torch.stack(hs, dim=1), h[:, None, :]
 
 
+def rglru_split_ref(a: torch.Tensor, b: torch.Tensor,
+                    h0: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split regime's arithmetic in PyTorch, in float32, one
+    elementwise operation at a time (no ``cumprod`` or ``cumsum``, whose
+    order is a tree on the card): tiles of ``segments(T)`` segments of
+    ``SEG_LEN`` steps; per tile each segment's pair (A = prod a, B = its
+    end state from zero), the carry across the segments c = A c + B, then
+    each segment rerun from its carry-in; the next tile starts from this
+    tile's last h."""
+    B, T, W = a.shape
+    a, b = a.float(), b.float()
+    c = (torch.zeros((B, W), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float().reshape(B, W))
+    tile = segments(T) * SEG_LEN
+    hs = []
+    for t0 in range(0, T, tile):
+        spans = [range(s, min(s + SEG_LEN, T))
+                 for s in range(t0, t0 + tile, SEG_LEN)]
+        pairs = []
+        for span in spans:
+            pa = torch.ones_like(c)
+            pb = torch.zeros_like(c)
+            for t in span:
+                pa = pa * a[:, t]
+                pb = a[:, t] * pb + b[:, t]
+            pairs.append((pa, pb))
+        carry_in = []
+        for pa, pb in pairs:
+            carry_in.append(c)
+            c = pa * c + pb
+        for x, span in zip(carry_in, spans):
+            for t in span:
+                x = a[:, t] * x + b[:, t]
+                hs.append(x)
+        c = hs[-1]
+    return torch.stack(hs, dim=1), hs[-1][:, None, :]
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("rglru_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rglru_launch.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.rglru_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.rglru_launch.restype = i
     lib.rglru_error_string.argtypes = [i]
     lib.rglru_error_string.restype = ctypes.c_char_p
     return lib
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def rglru_chunked(a: torch.Tensor, b: torch.Tensor,
                   h0: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """a, b: (B, T, W); h0: (B, W), (B, 1, W) or None
-    -> (h (B, T, W), h_last (B, 1, W)), both float32."""
+    -> (h (B, T, W), h_last (B, 1, W)), both float32.  On the card both
+    are views of one allocation."""
     if a.ndim != 3 or b.shape != a.shape:
         raise ValueError("rglru_chunked takes a, b of one (B, T, W) shape, "
                          f"got {tuple(a.shape)} and {tuple(b.shape)}")
@@ -65,35 +156,52 @@ def rglru_chunked(a: torch.Tensor, b: torch.Tensor,
                          f"W={W}, got {tuple(h0.shape)}")
     if T == 0:
         raise ValueError("rglru_chunked needs T >= 1")
-    tensors = [t for t in (a, b, h0) if t is not None]
-    if any(t.device != a.device for t in tensors):
+    # the checks are written out, not looped: each is on the launch path
+    dev = a.device
+    if b.device != dev or (h0 is not None and h0.device != dev):
         raise ValueError("rglru_chunked inputs must lie on one device")
-    if a.device.type == "cpu":
+    if dev.type == "cpu":
         return rglru_ref(a, b, h0)
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru_chunked runs on cuda or cpu, not "
-                         f"{a.device}")
-    if any(t.dtype != torch.float32 for t in tensors):
+    if dev.type != "cuda":
+        raise ValueError(f"rglru_chunked runs on cuda or cpu, not {dev}")
+    f32 = torch.float32
+    if a.dtype != f32 or b.dtype != f32 or (h0 is not None
+                                            and h0.dtype != f32):
         raise TypeError("rglru_chunked takes float32 inputs, got "
-                        f"{[t.dtype for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
+                        f"{[t.dtype for t in (a, b, h0) if t is not None]}")
+    if not (a.is_contiguous() and b.is_contiguous()
+            and (h0 is None or h0.is_contiguous())):
         raise ValueError("rglru_chunked takes contiguous inputs")
     if B > 65535:
         raise ValueError(f"B={B} exceeds one launch's 65535 rows")
-    h = torch.empty_like(a)
-    h_last = torch.empty((B, 1, W), dtype=torch.float32, device=a.device)
-    lib = _library()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.rglru_launch(
-            a.data_ptr(), b.data_ptr(),
-            None if h0 is None else h0.data_ptr(), h.data_ptr(),
-            h_last.data_ptr(), B, T, W, stream)
-    if err != 0:
-        raise RuntimeError("rglru_chunked launch failed: "
-                           + lib.rglru_error_string(err).decode())
+    out = _launch(a, b, h0, choose_regime(T))
     rglru_chunked.launches += 1
-    return h, h_last
+    return out
 
 
 rglru_chunked.launches = 0
+
+
+def _launch(a, b, h0, regime: str):
+    """One launch of the kernel in ``regime`` on checked CUDA inputs; no
+    launch count.  ``rglru_chunked`` calls it, and ``chip_smoke.py`` times
+    the step kernel on the split rows through it.  h and h_last are views
+    of one allocation."""
+    B, T, W = a.shape
+    dev = a.device
+    group, n_seg = (split_plan(B, T, W, _sm_count(dev.index))
+                    if regime == "split" else (0, 0))
+    n = B * T * W
+    out = a.new_empty(n + B * W)
+    lib = _library()
+    with build.on_device(dev):
+        err = lib.rglru_launch(
+            a.data_ptr(), b.data_ptr(),
+            None if h0 is None else h0.data_ptr(), out.data_ptr(),
+            out.data_ptr() + 4 * n, B, T, W, _REGIMES[regime], group, n_seg,
+            build.launch_stream(dev))
+    if err != 0:
+        raise RuntimeError(f"rglru_chunked {regime} launch failed: "
+                           + lib.rglru_error_string(err).decode())
+    return (out.as_strided((B, T, W), (T * W, W, 1)),
+            out.as_strided((B, 1, W), (W, W, 1), n))

@@ -128,7 +128,10 @@ def _scan_inputs(B, T, seed=0):
 
 
 @pytest.mark.parametrize("B,T", [(1, 512), (1, 353), (1, 9), (1, 1),
-                                 (64, 512), (5, 1000), (3, 33)])
+                                 (64, 512), (5, 1000), (3, 33),
+                                 # past one tile of 1024: the carry
+                                 # between tiles, a ragged last tile
+                                 (1, 1025), (2, 1500), (4, 4096)])
 def test_maxplus_kernel_matches_plain(B, T):
     from repro_torch.kernels.maxplus_scan import (maxplus_chunked,
                                                   maxplus_chunked_ref)
@@ -165,6 +168,31 @@ def test_maxplus_kernel_bit_equal_beyond_2pow24():
                       for b in range(4)])
     np.testing.assert_array_equal(maxplus_scan(ui, si, engine="torch"),
                                   wanti)
+
+
+@pytest.mark.parametrize("B,T", [(1, 512), (3, 33), (2, 4096)])
+def test_maxplus_is_bitwise_repeatable(B, T):
+    """No atomics: the block scan combines in a fixed order."""
+    from repro_torch.kernels.maxplus_scan import maxplus_chunked
+    _need_card()
+    u, s, h0 = _scan_inputs(B, T, seed=4)
+    first = maxplus_chunked(u, s, h0)
+    second = maxplus_chunked(u, s, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_maxplus_kernel_takes_unaligned_rows():
+    """Rows that start off 16 bytes (odd T, a view one element in) take
+    the element loads."""
+    from repro_torch.kernels.maxplus_scan import (maxplus_chunked,
+                                                  maxplus_chunked_ref)
+    _need_card()
+    u, s, h0 = _scan_inputs(3, 1100, seed=5)
+    u, s = u.reshape(-1)[1:1 + 3 * 1099].view(3, 1099), s[:, :1099].clone()
+    out = maxplus_chunked(u, s, h0)
+    torch.testing.assert_close(out, maxplus_chunked_ref(u, s, h0),
+                               rtol=1e-12, atol=0.0)
 
 
 def _price_inputs(B, E, seed=0):
@@ -330,29 +358,87 @@ def test_wkv6_runs_its_regime(T, N):
     assert 1 <= len(names) <= 3 and all(want in n for n in names), names
 
 
-@pytest.mark.parametrize("B,T,W,with_h0", [
-    (4, 1, 2560, True),                # decode: 4 slots
-    (2, 512, 2560, False),             # prefill: 2 x S = 512
-    (2, 512, 2560, True),
-    (3, 77, 100, True)])               # ragged T and W
-def test_rglru_kernel_matches_plain(B, T, W, with_h0):
-    from repro_torch.kernels.rglru_scan import rglru_chunked, rglru_ref
-    _need_card()
+def _rglru_inputs(B, T, W, with_h0=True, seed=0):
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(B + T + W)
+    gen.manual_seed(seed)
     a = torch.sigmoid(torch.randn(B, T, W, generator=gen,
                                   device="cuda")) * 0.9 + 0.05
     b = torch.randn(B, T, W, generator=gen, device="cuda") * 0.5
     h0 = torch.randn(B, W, generator=gen, device="cuda") if with_h0 \
         else None
+    return a, b, h0
+
+
+@pytest.mark.parametrize("B,T,W,with_h0", [
+    (4, 1, 2560, True),                # decode: 4 slots
+    (2, 512, 2560, False),             # prefill: 2 x S = 512
+    (2, 512, 2560, True),
+    (3, 77, 100, True),                # ragged T and W
+    (4, 63, 2560, True),               # the regime boundary
+    (4, 64, 2560, False),
+    (1, 4096, 2560, True),             # tiles of 512, channel group 16
+    (2, 1100, 100, False),             # a ragged last tile
+    (65535, 64, 8, True)])             # the most rows a launch takes
+def test_rglru_kernel_matches_plain(B, T, W, with_h0):
+    from repro_torch.kernels.rglru_scan import (choose_regime, rglru_chunked,
+                                                rglru_ref, rglru_split_ref)
+    _need_card()
+    a, b, h0 = _rglru_inputs(B, T, W, with_h0, seed=B + T + W)
     before = rglru_chunked.launches
     h, hl = rglru_chunked(a, b, h0)
     torch.cuda.synchronize()
     assert rglru_chunked.launches == before + 1
+    assert h.shape == (B, T, W) and hl.shape == (B, 1, W)
     he, hle = rglru_ref(a, b, h0)
-    # the kernel rounds the product and the sum as the plain version's
-    # two operations do: equal to the bit
-    assert torch.equal(h, he) and torch.equal(hl, hle)
+    if choose_regime(T) == "step":
+        # the kernel rounds the product and the sum as the plain version's
+        # two operations do: equal to the bit
+        assert torch.equal(h, he) and torch.equal(hl, hle)
+    else:
+        # the split regime's carry-ins come from segment pairs: equal to
+        # the bit to the same arithmetic in PyTorch, and within the
+        # reference suite's 1e-4 of the sequential recurrence
+        hs, hls = rglru_split_ref(a, b, h0)
+        assert torch.equal(h, hs) and torch.equal(hl, hls)
+        torch.testing.assert_close(h, he, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(hl, hle, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,T,W", [(4, 1, 2560), (2, 512, 2560),
+                                   (3, 77, 100)])
+def test_rglru_is_bitwise_repeatable(B, T, W):
+    """No atomics: both regimes run their steps in a fixed order."""
+    from repro_torch.kernels.rglru_scan import rglru_chunked
+    _need_card()
+    a, b, h0 = _rglru_inputs(B, T, W, seed=7)
+    first = rglru_chunked(a, b, h0)
+    second = rglru_chunked(a, b, h0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 512])
+def test_rglru_runs_its_regime(T):
+    """T < SPLIT_MIN runs ``rglru_kernel_step``, longer T
+    ``rglru_kernel_split``, one launch and one count a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.rglru_scan import choose_regime, rglru_chunked
+    _need_card()
+    a, b, h0 = _rglru_inputs(2, T, 256, seed=8)
+    rglru_chunked(a, b, h0)
+    torch.cuda.synchronize()
+    before = rglru_chunked.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            rglru_chunked(a, b, h0)
+        torch.cuda.synchronize()
+    assert rglru_chunked.launches == before + 3
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    want = f"rglru_kernel_{choose_regime(T)}"
+    # the profiler may drop a record from a window, never add one
+    assert 1 <= len(names) <= 3 and all(want in n for n in names), names
 
 
 def test_recurrence_wrappers_check_inputs():
