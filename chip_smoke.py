@@ -57,11 +57,19 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    layer, each layer held against the plain path (``_sdpa_chunked``) in
    float32 and the bf16 logits against the plain path's;
 5. plan: the 8 XR-bench tasks on ``PAPER_HW``/AMP through
-   ``get_planner().plan(PlanRequest(g, engine="torch"))`` on ``cuda``;
-   every candidate batch goes through the CUDA ``price_rows`` (one
-   launch per edge bucket); each plan must equal the numpy engine's and
-   ``tests/golden/xrbench_plans.json``; the real batches of this run are
-   then held against the plain version;
+   ``get_planner().plan(PlanRequest(g, engine=...))``, the torch engine
+   on ``cuda`` and the numpy engine in turns (three rounds, the order
+   alternating, each pass from cold caches); every pricing call with
+   rows of a recurrence goes through the CUDA ``price_rows`` in one
+   launch, whatever its edge counts, and the host time of its packing,
+   copy-launch-copy round trip and ``SegmentCost`` assembly is taken
+   apart; each plan must equal the numpy engine's and
+   ``tests/golden/xrbench_plans.json``; one more torch pass under the
+   profiler sums the kernel's device time; every real call of the run is
+   then held against the plain version bit for bit, and the largest
+   call, the call with the widest rows, all rows in one call and
+   synthetic calls (E = 33, 70, 200; rows too large for a block's shared
+   memory) are timed;
 6. simulate: every segment of those plans through
    ``simulate_segment(engine="torch")``, whose max-plus scans all go
    through the CUDA ``maxplus_chunked``, against ``engine="numpy"``,
@@ -127,9 +135,6 @@ MAXPLUS_SHAPES = [("path", 1, 512), ("path-353", 1, 353), ("path-9", 1, 9),
 #: max-plus kernel vs plain: fractional inputs, tree-order (kernel) vs
 #: prefix-sum (plain) rounding; integer inputs must be bit-equal
 MAXPLUS_RTOL = 1e-12
-#: price_rows kernel vs plain, relative (both should be bit-equal: the
-#: kernel is built without FMA); ``congested`` must be equal
-PRICE_RTOL = 1e-6
 #: torch vs numpy engine: plan floats; simulated latency (1e-9 past 2^24)
 PLAN_RTOL = 1e-6
 SIM_RTOL = 1e-6
@@ -822,46 +827,72 @@ def _us_to_ms(us):
     return None if us is None else us / 1e3
 
 
-def check_price_rows(label: str, rows, E_pad: int, floor_ms: float):
-    """One real batch of the planning run: the pricing kernel against
-    its plain version on the same device tensors."""
+def _price_bound(lay, n_final: int):
+    """Bound of one ragged call: each staged input read once and the
+    packed output written once; ~16 float64 operations per edge, 4 per
+    incoming entry (divide, multiply, two maxima), 3 per final edge and
+    1 per row."""
+    from repro_torch.kernels.price_rows import layout
+    nbytes = layout(lay.B, lay.N, lay.M).nbytes + 8 * (3 * lay.B + lay.N)
+    ops = 16 * lay.N + 4 * lay.M + 3 * n_final + lay.B
+    return _bound(nbytes, ops, "float64")
+
+
+def check_price_rows(label: str, rows, floor_ms: float, timed: bool = True):
+    """One call's rows, staged as the planner stages them: the kernel
+    against its plain version on the same device tensors, bit for bit,
+    and two calls bitwise equal; with ``timed``, its times, bound and
+    block plan."""
+    import numpy as np
     import torch
-    from repro_torch.core.pipeline_model_torch import pack_rows
-    from repro_torch.kernels.price_rows import price_rows, price_rows_ref
-    args = pack_rows(rows, E_pad, "cuda")
-    got = price_rows(*args)
-    exp = price_rows_ref(*args)
+    from repro_torch.core.pipeline_model_torch import stage_rows
+    from repro_torch.kernels.price_rows import (block_plan, price_rows,
+                                                price_rows_plain,
+                                                price_staged, unstage)
+    stage, lay = stage_rows(rows, pin=True)
+    args = unstage(stage.cuda(), lay)
+    plan = block_plan(args[2], args[4])
+    got = price_rows(*args, plan=plan)
+    again = price_rows(*args, plan=plan)
+    exp = price_rows_plain(*args)
+    staged = price_staged(stage, lay, torch.device("cuda"))
     torch.cuda.synchronize()
-    err, rel = 0.0, 0.0
-    for i in (0, 2, 3):                  # latency, hop energy, deltas
-        d = (got[i] - exp[i]).abs()
-        err = max(err, float(d.max()))
-        rel = max(rel, float((d / exp[i].abs().clamp(min=1e-300)).max()))
-    same_congested = bool(torch.equal(got[1], exp[1]))
-    B = len(rows)
-    inc, fin = args[9], args[8]
-    sync = torch.cuda.synchronize
-    nbytes = (7 * B * E_pad * 8 + 2 * B * E_pad + B * E_pad * E_pad + 8 * B
-              + 8 * B + B + 8 * B + 8 * B * E_pad)
-    # what these candidates need: ~16 operations per edge, 4 per incoming
-    # edge (divide, multiply, two maxima), 3 per final edge, 1 per row
-    ops = (16 * sum(r.n_edges for r in rows) + 4 * int(inc.sum())
-           + 3 * int(fin.sum()) + B)
-    bound_ms, bound_by = _bound(nbytes, ops, "float64")
-    row = {"shape": label, "B": B, "E_pad": E_pad,
-           "max_abs_err": err, "max_rel_err": rel, "tol_rel": PRICE_RTOL,
-           "congested_equal": same_congested,
-           "bit_equal": all(torch.equal(g, e) for g, e in zip(got, exp)),
-           "ms": time_ms(lambda: price_rows(*args), sync),
-           "plain_ms": time_ms(lambda: price_rows_ref(*args), sync),
-           "device_ms": _us_to_ms(device_us(lambda: price_rows(*args),
-                                            "price_rows_kernel")),
-           "launch_floor_ms": floor_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": None}
+    bit_equal = bool(torch.equal(got, exp))
+    repeatable = bool(torch.equal(got, again))
+    check(bit_equal and repeatable
+          and np.array_equal(staged, got.cpu().numpy()),
+          f"price_rows {label}: kernel bit-equal to plain: {bit_equal}, "
+          f"repeatable: {repeatable}, staged call equal: "
+          f"{np.array_equal(staged, got.cpu().numpy())}")
+    edges = [r.n_edges for r in rows]
+    row = {"shape": label, "B": lay.B, "N": lay.N, "M": lay.M,
+           "E_max": max(edges), "E_min": min(edges),
+           "max_abs_err": float((got - exp).abs().max()),
+           "bit_equal": bit_equal, "repeatable": repeatable,
+           "regime": plan.regime, "rows_per_block": plan.rows_per_block,
+           "smem_bytes": plan.smem_bytes, "blocks": plan.blocks,
+           "global_blocks": plan.global_blocks,
+           "device_ms": _us_to_ms(device_us(
+               lambda: price_rows(*args, plan=plan), "price_rows_kernel",
+               per_call=1))}
+    if timed:
+        sync = torch.cuda.synchronize
+        dev = torch.device("cuda")
+        n_calls = 200
+        price_staged(stage, lay, dev)
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            price_staged(stage, lay, dev)
+        call_ms = (time.perf_counter() - t0) / n_calls * 1e3
+        bound_ms, bound_by = _price_bound(
+            lay, sum(int(r.final.sum()) for r in rows))
+        row.update(
+            ms=time_ms(lambda: price_rows(*args, plan=plan), sync),
+            call_ms=call_ms,
+            plain_ms=time_ms(lambda: price_rows_plain(*args), sync),
+            launch_floor_ms=floor_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None)
     print("price_rows " + json.dumps(row))
-    check(rel <= PRICE_RTOL and same_congested,
-          f"price_rows {label}: max rel err {rel:.3g} (tol {PRICE_RTOL}), "
-          f"congested equal: {same_congested}")
     return row
 
 
@@ -924,99 +955,196 @@ def _cold_planner_caches():
     pipeline_model_torch.price_cache_clear()
 
 
+#: engine order of the plan phase's timed rounds, each engine's pass
+#: from cold caches; the order alternates so that neither engine always
+#: runs first
+PLAN_ROUNDS = [("torch", "numpy"), ("numpy", "torch"), ("torch", "numpy")]
+
+
 def phase_planner():
-    """Plan the 8 XR-bench tasks on the card; record the real batches."""
+    """Plan the 8 XR-bench tasks on the card with each engine in turns,
+    check every plan, and record the torch engine's pricing calls: their
+    rows, launches, and the host time of their three parts."""
+    import statistics
+
     import torch
     from repro_torch.configs.xrbench import all_tasks
     from repro_torch.core import (PAPER_HW, PlanRequest, Topology,
                                   get_planner, pipeline_model_torch)
-    from repro_torch.kernels.price_rows import price_rows
+    from repro_torch.kernels import price_rows as kpr
     tasks = all_tasks()
     golden = json.loads(GOLDEN.read_text())
     planner = get_planner()
+    pmt = pipeline_model_torch
 
-    # record every torch-priced group (edge bucket, rows) of this run,
-    # and the host time spent in price_rows (packing, copies, launches)
-    recorded = []
-    real = pipeline_model_torch.price_rows
-    in_pricing = [0.0]
+    def timed(fn, key, clock, each=None):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            dt = time.perf_counter() - t0
+            clock[key] += dt
+            if each is not None:
+                each.append(dt)
+            return out
+        return wrapper
 
-    def recording(rows, device=None):
-        groups = {}
-        for r in rows:
-            if r.host_cost is None:
-                groups.setdefault(pipeline_model_torch._bucket_edges(
-                    r.n_edges), []).append(r)
-        recorded.extend(sorted(groups.items(), key=lambda kv: kv[0]))
-        t0 = time.perf_counter()
-        out = real(rows, device=device)
-        in_pricing[0] += time.perf_counter() - t0
-        return out
-
-    plans, wall = {"torch": {}, "numpy": {}}, {"torch": {}, "numpy": {}}
-    for engine in ("torch", "numpy"):
+    def plan_all(engine):
+        """One pass over the tasks from cold caches; with the torch
+        engine, the device rows of each pricing call and the host time
+        of its parts (packing, the copy-launch-copy round trip,
+        ``SegmentCost`` assembly)."""
         _cold_planner_caches()
+        calls = []
+        clock = dict.fromkeys(("price_rows", "pack", "round_trip",
+                               "assemble"), 0.0)
+        trips = []
+        real = (pmt.price_rows, pmt.stage_rows, kpr.price_staged,
+                pmt._assemble)
+
+        def recording(rows, device=None):
+            calls.append([r for r in rows if r.host_cost is None])
+            return real[0](rows, device=device)
+
+        kpr.price_rows.launches = 0
         if engine == "torch":
-            pipeline_model_torch.price_rows = recording
-            price_rows.launches = 0
+            pmt.price_rows = timed(recording, "price_rows", clock)
+            pmt.stage_rows = timed(real[1], "pack", clock)
+            kpr.price_staged = timed(real[2], "round_trip", clock, trips)
+            pmt._assemble = timed(real[3], "assemble", clock)
+        plans, wall = {}, {}
         try:
             for name in sorted(tasks):
                 t0 = time.perf_counter()
-                plans[engine][name] = planner.plan(PlanRequest(
+                plans[name] = planner.plan(PlanRequest(
                     tasks[name], hw=PAPER_HW, topology=Topology.AMP,
                     engine=engine))
                 torch.cuda.synchronize()
-                wall[engine][name] = time.perf_counter() - t0
+                wall[name] = time.perf_counter() - t0
         finally:
-            pipeline_model_torch.price_rows = real
-        if engine == "torch":
-            launches = price_rows.launches
-            hits, misses, _, _ = pipeline_model_torch.price_cache_info()
-    groups = hits + misses
-    check(launches > 0 and launches == groups == len(recorded),
-          f"price_rows launched {launches} times for {groups} torch-priced "
-          f"groups ({len(recorded)} recorded)")
+            (pmt.price_rows, pmt.stage_rows, kpr.price_staged,
+             pmt._assemble) = real
+        device_calls = [c for c in calls if c]
+        return {"plans": plans, "wall": wall, "calls": device_calls,
+                "launches": kpr.price_rows.launches,
+                "groups": sum(pmt.price_cache_info()[:2]), "clock": clock,
+                "trips": trips}
+
+    turns = []
+    for rnd, order in enumerate(PLAN_ROUNDS):
+        for engine in order:
+            t = plan_all(engine)
+            t.update(engine=engine, round=rnd, total_s=sum(t["wall"].values()))
+            turns.append(t)
+            print(f"plan round {rnd} {engine}: {t['total_s']:.3f} s"
+                  + (f", price_rows {t['clock']['price_rows']:.4f} s, "
+                     f"{t['launches']} launches for {len(t['calls'])} calls"
+                     if engine == "torch" else ""))
+    torch_turns = [t for t in turns if t["engine"] == "torch"]
+    numpy_turns = [t for t in turns if t["engine"] == "numpy"]
+    for t in torch_turns:
+        check(t["launches"] > 0 and t["launches"] == len(t["calls"]),
+              f"price_rows launched {t['launches']} times for "
+              f"{len(t['calls'])} calls with device rows")
     for name in sorted(tasks):
-        snap = _snapshot_plan(plans["torch"][name])
-        for other, want in (("numpy engine", _snapshot_plan(
-                plans["numpy"][name])), ("golden file", golden[name])):
-            diff = _plans_differ(snap, want)
-            check(diff is None, f"plan of {name}, torch engine vs {other}: "
-                                f"{diff}")
-        print(f"plan {name}: {len(snap['segments'])} segments, latency "
-              f"{snap['latency_cycles']:.6g} cycles; wall torch "
-              f"{wall['torch'][name]:.3f} s, numpy "
-              f"{wall['numpy'][name]:.3f} s")
-    rows = sum(len(r) for _, r in recorded)
+        want_numpy = _snapshot_plan(numpy_turns[0]["plans"][name])
+        check(_plans_differ(want_numpy, golden[name]) is None,
+              f"plan of {name}, numpy engine vs golden file")
+        for t in torch_turns:
+            snap = _snapshot_plan(t["plans"][name])
+            for other, want in (("numpy engine", want_numpy),
+                                ("golden file", golden[name])):
+                diff = _plans_differ(snap, want)
+                check(diff is None, f"plan of {name}, torch engine (round "
+                                    f"{t['round']}) vs {other}: {diff}")
+        print(f"plan {name}: {len(want_numpy['segments'])} segments, "
+              f"latency {want_numpy['latency_cycles']:.6g} cycles; wall "
+              f"torch {[round(t['wall'][name], 4) for t in torch_turns]} s, "
+              f"numpy {[round(t['wall'][name], 4) for t in numpy_turns]} s")
+
+    # the kernel's device time over one more torch pass, by the profiler
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_turn = plan_all("torch")
+    kernel_us = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "price_rows_kernel" in e.name]
+    for name in sorted(tasks):
+        check(_plans_differ(_snapshot_plan(prof_turn["plans"][name]),
+                            golden[name]) is None,
+              f"plan of {name}, profiled torch pass vs golden file")
+
+    first = torch_turns[0]
+    calls = first["calls"]
     sizes = {}
-    for e_pad, rs in recorded:
-        sizes[e_pad] = sizes.get(e_pad, 0) + len(rs)
-    out = {"tasks": len(tasks), "launches": launches, "groups": groups,
-           "rows": rows, "rows_by_e_pad": sizes,
-           "largest_batch": max(len(r) for _, r in recorded),
-           "price_rows_s": in_pricing[0],
-           "total_wall_s": {e: sum(w.values()) for e, w in wall.items()},
-           "wall_s": wall, "plans_equal_numpy_and_golden": True}
+    for c in calls:
+        for r in c:
+            e_pad = pmt._bucket_edges(r.n_edges)
+            sizes[e_pad] = sizes.get(e_pad, 0) + 1
+    median = {e: statistics.median(t["total_s"] for t in turns
+                                   if t["engine"] == e)
+              for e in ("torch", "numpy")}
+    split = {k: statistics.median(t["clock"][k] for t in torch_turns)
+             for k in ("price_rows", "pack", "round_trip", "assemble")}
+    out = {"tasks": len(tasks), "launches": first["launches"],
+           "calls": len(calls), "groups": first["groups"],
+           "rows": sum(len(c) for c in calls), "rows_by_e_pad": sizes,
+           "edges_max": max(r.n_edges for c in calls for r in c),
+           "largest_call": max(len(c) for c in calls),
+           "price_rows_s": split["price_rows"],
+           "price_rows_split_s": {k: split[k] for k in
+                                  ("pack", "round_trip", "assemble")},
+           "price_rows_s_by_turn": [t["clock"]["price_rows"]
+                                    for t in torch_turns],
+           # one round trip (copy up, launch, copy down) a call, in each
+           # torch turn: median and largest
+           "round_trip_ms_by_turn": [
+               [statistics.median(t["trips"]) * 1e3, max(t["trips"]) * 1e3]
+               for t in torch_turns],
+           "turns": [{"round": t["round"], "engine": t["engine"],
+                      "total_s": t["total_s"]} for t in turns],
+           "median_total_s": median,
+           "wall_s": {e: [t["wall"] for t in turns if t["engine"] == e]
+                      for e in ("torch", "numpy")},
+           "plan_device_ms": sum(kernel_us) / 1e3,
+           "profiled_kernels": len(kernel_us),
+           "profiled_launches": prof_turn["launches"],
+           "plans_equal_numpy_and_golden": True}
     print("plan " + json.dumps({k: v for k, v in out.items()
                                 if k != "wall_s"}))
-    return out, plans["torch"], recorded
+    return out, first["plans"], calls
 
 
-def phase_price_rows(recorded, floor_ms: float):
-    """The pricing kernel against its plain version on this run's real
-    batches: the largest of each edge bucket, and every row of the widest
-    bucket in one batch."""
-    best = {}
-    for e_pad, rows in recorded:
-        if e_pad not in best or len(rows) > len(best[e_pad]):
-            best[e_pad] = rows
-    out = [check_price_rows(f"largest E_pad={e}", rows, e, floor_ms)
-           for e, rows in sorted(best.items())]
-    e_max = max(best)
-    wide = [r for e, rows in recorded if e == e_max for r in rows]
-    out.append(check_price_rows(f"all E_pad={e_max}", wide, e_max,
-                                floor_ms))
-    return out
+#: synthetic calls beyond the planning run's shapes: (label, edge counts)
+#: with up to 4 incoming edges an edge; rows past the reference's 32-edge
+#: bucket, and rows too large for a block's shared memory (global scratch,
+#: alone and beside small rows)
+PRICE_SYNTHETIC = [("synthetic E=33", [33] * 32),
+                   ("synthetic E=70", [70] * 32),
+                   ("synthetic E=200", [200] * 32),
+                   ("synthetic E=600 (global)", [600] * 4),
+                   ("synthetic E=600 + small (mixed)", [600] + [8] * 63)]
+
+
+def phase_price_rows(calls, floor_ms: float):
+    """The pricing kernel against its plain version, bit for bit, on
+    every real call of the planning run; timed on the largest call, the
+    call holding the widest rows, every device row of the run in one
+    call, and the synthetic calls."""
+    from repro_torch.core.pipeline_model_torch import synthetic_rows
+    each = [check_price_rows(f"call {i}", rows, floor_ms, timed=False)
+            for i, rows in enumerate(calls)]
+    e_max = max(r.n_edges for c in calls for r in c)
+    widest = max((c for c in calls if any(r.n_edges == e_max for r in c)),
+                 key=len)
+    out = [check_price_rows("largest call", max(calls, key=len), floor_ms),
+           check_price_rows(f"call with E={e_max}", widest, floor_ms),
+           check_price_rows("all rows", [r for c in calls for r in c],
+                            floor_ms)]
+    for seed, (label, edges) in enumerate(PRICE_SYNTHETIC):
+        out.append(check_price_rows(label, synthetic_rows(edges, seed=seed),
+                                    floor_ms))
+    return out, each
 
 
 def phase_simulate(plans):
@@ -1709,8 +1837,8 @@ def main() -> None:
     flash_rows = phase_flash(usage)
     serves, forwards = phase_models()
     serve = serves["qwen2.5-3b"]
-    plan, plans, recorded = phase_planner()
-    pr_rows = phase_price_rows(recorded, floor_ms)
+    plan, plans, calls = phase_planner()
+    pr_rows, pr_calls = phase_price_rows(calls, floor_ms)
     sim = phase_simulate(plans)
     small = phase_small_reference()
 
@@ -1738,9 +1866,9 @@ def main() -> None:
     # the planner's kernels: no single PyTorch call computes either
     # function (a max-plus scan; the Fig. 3 recurrence), so library_ms is
     # null; their main rows are the simulator's one-row T = 512 scan and
-    # the planning run's largest batch at E_pad = 8 (the commonest bucket)
+    # the planning run's largest call
     mp = next(r for r in mp_rows if r["shape"] == "path")
-    pr = max(pr_rows, key=lambda r: (r["E_pad"] == 8, r["B"]))
+    pr = next(r for r in pr_rows if r["shape"] == "largest call")
     for name, src, ref, launches, r in (
             ("maxplus_chunked", "maxplus_scan.cu",
              "src/repro/kernels/maxplus_scan.py:129", sim["launches"], mp),
@@ -1755,6 +1883,17 @@ def main() -> None:
             "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    # price_rows: the call holding the widest rows, the plan run's device
+    # time by the profiler, and the planner's round trip a call
+    wide = next(r for r in pr_rows
+                if r["shape"] == f"call with E={plan['edges_max']}")
+    kernels[-1].update({
+        "regime": pr["regime"], "call_ms": pr["call_ms"],
+        "calls": plan["calls"], "groups": plan["groups"],
+        "plan_device_ms": plan["plan_device_ms"],
+        "widest_E": plan["edges_max"], "widest_B": wide["B"],
+        "widest_device_ms": wide["device_ms"], "widest_ms": wide["ms"],
+        "widest_bound_ms": wide["bound_ms"]})
     # the recurrences: no single PyTorch call computes either (a matrix-
     # state linear recurrence; a diagonal one), so library_ms is null;
     # their main rows are the serve paths' decode shapes, their launches
@@ -1825,7 +1964,8 @@ def main() -> None:
         "global_library_ms": gl["library_ms"], "regime": fl["regime"]})
     record = {"card": smi, "kernels": kernels, "fused_mlp_rows": rows,
               "maxplus_rows": mp_rows, "maxplus_exact": mp_exact,
-              "price_rows_rows": pr_rows, "wkv6_rows": wkv_rows,
+              "price_rows_rows": pr_rows, "price_rows_calls": pr_calls,
+              "wkv6_rows": wkv_rows,
               "rglru_rows": rg_rows, "flash_rows": flash_rows,
               "launch_floor_ms": floor_ms,
               "serve": serve, "serves": serves, "forwards": forwards,

@@ -3,16 +3,15 @@
 Port of ``repro.core.pipeline_model_jax``.  ``segment_cost`` prices one
 candidate at a time with Python floats; the planner's DP calls it
 thousands of times per cold plan.  This module re-expresses the per-edge
-interval recurrence over padded slot-DAG tensors so *all* (cut, org,
-staging) candidates of a span batch are priced in one kernel launch per
-edge bucket:
+interval recurrence over ragged slot-DAG rows so *all* (cut, org,
+staging) candidates of a span batch are priced in one kernel launch:
 
   * the host (``build_row``) prepares everything that is cheap and
     irregular — dataflows, granularities, PE allocation, NoC traffic
     analysis (``_pair_traffic`` stays host-side, served by whole-sweep
     ``noc.analyze_batch`` passes over cached ``RouteIncidence`` tables
     and LRU-cached per pair), DRAM / SRAM byte totals, the compute
-    lower bound;
+    lower bound, and each edge's incoming edges as a list;
   * the device (``kernels.price_rows``: the CUDA kernel on ``cuda``, its
     plain torch version on ``cpu``) replays only the sequential part
     numpy cannot batch: per-edge ``delta`` chaining (producer-side rate
@@ -26,11 +25,13 @@ runs the host's operations in the host's order, so its float64 results
 match ``segment_cost`` to the last bit.  Numbers stay float64 — cycle
 counts exceed 2**24, where float32 drops whole cycles.
 
-Shape discipline: candidates bucket by padded edge count (powers of two,
-floor 2), as in the reference, one launch per bucket.
-``price_cache_info`` counts the (padded edges, batch) shapes a call
-reuses or meets first, for ``Planner.cache_registry()``; hits + misses is
-the number of buckets priced.
+One call, one launch: ``price_rows`` packs a call's rows, whatever their
+edge counts, into one staging tensor (``stage_rows``), copies it to the
+card once, launches once and copies one packed output back.  The
+reference instead launched once per power-of-two edge bucket;
+``price_cache_info`` still counts those buckets, the (padded edges,
+batch) shapes a call reuses or meets first, for
+``Planner.cache_registry()``.
 """
 from __future__ import annotations
 
@@ -58,26 +59,31 @@ from .pipeline_model import (SegmentCost, chain_edges, edge_burst_count,
 # ---------------------------------------------------------------------------
 
 
+_FLOAT_FIELDS = ("t_prod", "t_cons", "n_bursts", "fill", "load", "hops",
+                 "hop_unit")
+
+
 @dataclasses.dataclass
 class PriceRow:
     """One candidate's device inputs + host passthrough scalars.
 
-    Arrays are length ``n_edges``; ``inc[k, d]`` marks edge d as incoming
-    to edge k's producer slot (the producer-side rate-chain adjacency).
+    ``floats`` holds the seven per-edge rows of ``_FLOAT_FIELDS`` (each
+    also readable by its name: ``row.t_prod`` is ``row.floats[0]``) and
+    ``flags`` the two per-edge masks (bit 0 ``stats_present``, bit 1
+    ``final``), so that a call's rows stage in one copy each.
+    ``inc[k, d]`` marks edge d as incoming to edge k's producer slot (the
+    producer-side rate-chain adjacency), and ``in_deg`` / ``in_idx`` hold
+    the same as lists, the kernel's input: edge k's incoming edges are
+    the next ``in_deg[k]`` entries of ``in_idx``, in edge order.
     ``host_cost`` short-circuits depth-1 candidates, which have no
     recurrence and are priced entirely on the host.
     """
     n_edges: int
-    t_prod: np.ndarray
-    t_cons: np.ndarray
-    n_bursts: np.ndarray        # float64, each >= 1
-    fill: np.ndarray
-    load: np.ndarray
-    hops: np.ndarray
-    hop_unit: np.ndarray        # per-burst hop energy of the edge's flows
-    stats_present: np.ndarray   # bool
-    final: np.ndarray           # bool: edge drains into the sink slot
+    floats: np.ndarray          # float64 (7, E); n_bursts >= 1
+    flags: np.ndarray           # uint8 (E,)
     inc: np.ndarray             # bool (E, E)
+    in_deg: np.ndarray          # int32 (E,)
+    in_idx: np.ndarray          # int32 (sum of in_deg,)
     mem_stall: float
     # host passthrough for SegmentCost assembly
     dram_bytes: float
@@ -87,6 +93,23 @@ class PriceRow:
     sram_energy: float
     intervals: List[int]
     host_cost: Optional[SegmentCost] = None
+
+    @property
+    def stats_present(self) -> np.ndarray:
+        """bool: the edge has NoC stats (its flows cross the NoC)."""
+        return (self.flags & 1).astype(bool)
+
+    @property
+    def final(self) -> np.ndarray:
+        """bool: the edge drains into the sink slot."""
+        return (self.flags & 2).astype(bool)
+
+
+for _j, _name in enumerate(_FLOAT_FIELDS):
+    setattr(PriceRow, _name,
+            property(lambda self, j=_j: self.floats[j],
+                     doc=f"row {_j} of ``floats``"))
+del _j, _name
 
 
 def build_row(
@@ -112,8 +135,9 @@ def build_row(
                             via_global_buffer, external_in_bytes,
                             external_out_bytes, skip_in_bytes,
                             array_pes=array_pes, edges=edges)
-        return PriceRow(0, *(np.zeros(0),) * 8, np.zeros(0, bool),
-                        np.zeros((0, 0), bool), 0.0, cost.dram_bytes,
+        return PriceRow(0, np.zeros((7, 0)), np.zeros(0, np.uint8),
+                        np.zeros((0, 0), bool), np.zeros(0, np.int32),
+                        np.zeros(0, np.int32), 0.0, cost.dram_bytes,
                         cost.sram_bytes, cost.compute_cycles,
                         cost.dram_energy, cost.sram_energy,
                         list(cost.intervals), host_cost=cost)
@@ -137,16 +161,14 @@ def build_row(
     for k, (u, v) in enumerate(edge_list):
         incoming.setdefault(v, []).append(k)
 
-    t_prod = np.zeros(E)
-    t_cons = np.zeros(E)
-    n_bursts = np.ones(E)
-    fill = np.zeros(E)
-    load = np.zeros(E)
-    hops = np.zeros(E)
-    hop_unit = np.zeros(E)
+    floats = np.zeros((7, E))
+    t_prod, t_cons, n_bursts, fill, load, hops, hop_unit = floats
+    n_bursts[:] = 1.0
     sp = np.zeros(E, bool)
     fin = np.zeros(E, bool)
     inc = np.zeros((E, E), bool)
+    in_deg = np.zeros(E, np.int32)
+    in_idx: List[int] = []
     intervals: List[int] = []
     for k, (u, v) in enumerate(edge_list):
         outv = max(1, ops[u].output_volume())
@@ -170,13 +192,16 @@ def build_row(
             hops[k] = float(stats.max_path_hops)
             hop_unit[k] = stats.hop_energy(hw)
         fin[k] = (v == sink)
-        for d in incoming.get(u, ()):
+        ins = incoming.get(u, ())
+        in_deg[k] = len(ins)
+        in_idx.extend(ins)
+        for d in ins:
             inc[k, d] = True
 
     if not fin.any():
         raise ValueError("pipeline DAG has no edge into the final slot")
-    return PriceRow(E, t_prod, t_cons, n_bursts, fill, load, hops,
-                    hop_unit, sp, fin, inc, mem_stall, dram,
+    return PriceRow(E, floats, sp | (fin.astype(np.uint8) << 1), inc,
+                    in_deg, np.asarray(in_idx, np.int32), mem_stall, dram,
                     sram_traffic, comp_lb, dram * hw.e_dram,
                     sram_traffic * hw.e_sram, intervals)
 
@@ -187,8 +212,9 @@ _MISSES = 0
 
 
 def price_cache_info() -> Tuple[int, int, Optional[int], int]:
-    """(hits, misses, maxsize, currsize) of the batch shapes — the shape
-    signature a call reuses (hit) or meets first (miss).  Feeds
+    """(hits, misses, maxsize, currsize) of the edge-bucket shapes — the
+    (padded edges, batch) signature a call's bucket reuses (hit) or meets
+    first (miss), as the reference's registry counts them.  Feeds
     ``Planner.cache_registry()`` like the lru_cache providers."""
     return (_HITS, _MISSES, None, len(_SHAPES_SEEN))
 
@@ -199,86 +225,139 @@ def price_cache_clear() -> None:
     _HITS = _MISSES = 0
 
 
-def _bucket_edges(E: int) -> int:
-    return max(2, 1 << (E - 1).bit_length())
+_bucket_edges = _kernel.bucket_edges      # the reference's name
 
 
-def pack_rows(rows: Sequence[PriceRow], E_pad: int, device
-              ) -> Tuple[torch.Tensor, ...]:
-    """One edge bucket's rows as the kernel's (B, E_pad) tensors on
-    ``device``: t_prod, t_cons, n, fill, load, hops, hop_unit, sp, fin,
-    inc, mem_stall.  Padded edges are inert (t = 0, n = 1, masks off)."""
-    B = len(rows)
-    # the seven float rows in one array, so the batch reaches the device
-    # in four copies
-    f = np.zeros((7, B, E_pad))
-    f[2] = 1.0
-    masks = np.zeros((2, B, E_pad), bool)                # sp, fin
-    inc = np.zeros((B, E_pad, E_pad), bool)
-    mem_stall = np.zeros(B)
-    for b, r in enumerate(rows):
-        e = r.n_edges
-        for j, a in enumerate((r.t_prod, r.t_cons, r.n_bursts, r.fill,
-                               r.load, r.hops, r.hop_unit)):
-            f[j, b, :e] = a
-        masks[0, b, :e] = r.stats_present
-        masks[1, b, :e] = r.final
-        inc[b, :e, :e] = r.inc
-        mem_stall[b] = r.mem_stall
-    ft = torch.from_numpy(f).to(device)
-    mt = torch.from_numpy(masks).to(device)
-    return (*ft, mt[0], mt[1], torch.from_numpy(inc).to(device),
-            torch.from_numpy(mem_stall).to(device))
-
-
-def price_rows(rows: Sequence[PriceRow], device=None) -> List[SegmentCost]:
-    """Price a batch of candidates; one kernel launch per edge bucket.
-
-    Depth-1 rows pass through their host cost.  The rest are grouped by
-    padded edge count and priced on ``device`` (default ``cuda``, which
-    raises without a card; ``"cpu"`` runs the plain version); padded edges
-    are inert (t = 0, n = 1, masks off) and sliced away before
-    ``SegmentCost`` assembly.
-    """
+def _count_buckets(rows: Sequence[PriceRow]) -> None:
     global _HITS, _MISSES
-    out: List[Optional[SegmentCost]] = [None] * len(rows)
-    groups: Dict[int, List[int]] = {}
-    for i, row in enumerate(rows):
-        if row.host_cost is not None:
-            out[i] = row.host_cost
-        else:
-            groups.setdefault(_bucket_edges(row.n_edges), []).append(i)
-    if not groups:
-        return out  # type: ignore[return-value]
-    dev = resolve_device(device)
-
-    for E_pad, idxs in sorted(groups.items()):
-        B = len(idxs)
-        key = (E_pad, B)
+    sizes: Dict[int, int] = {}
+    for r in rows:
+        e_pad = _bucket_edges(r.n_edges)
+        sizes[e_pad] = sizes.get(e_pad, 0) + 1
+    for key in sizes.items():
         if key in _SHAPES_SEEN:
             _HITS += 1
         else:
             _MISSES += 1
         _SHAPES_SEEN[key] = _SHAPES_SEEN.get(key, 0) + 1
-        lat, congested, hop_e, deltas = _kernel.price_rows(
-            *pack_rows([rows[i] for i in idxs], E_pad, dev))
-        lat = lat.cpu().numpy()
-        congested = congested.cpu().numpy()
-        hop_e = hop_e.cpu().numpy()
-        deltas = deltas.cpu().numpy()
-        for b, i in enumerate(idxs):
-            r = rows[i]
-            out[i] = SegmentCost(
-                latency_cycles=float(lat[b]),
-                compute_cycles=r.comp_lb,
-                dram_bytes=r.dram_bytes,
-                sram_bytes=r.sram_bytes,
-                noc_hop_energy=float(hop_e[b]),
-                dram_energy=r.dram_energy,
-                sram_energy=r.sram_energy,
-                interval_delays=[float(x) for x in
-                                 deltas[b, :r.n_edges]],
-                intervals=list(r.intervals),
-                congested=bool(congested[b]))
+
+
+def stage_rows(rows: Sequence[PriceRow], pin: bool = False
+               ) -> Tuple[torch.Tensor, _kernel.Layout]:
+    """Rows with a recurrence (``n_edges >= 1``) in the kernel's ragged
+    layout, in one uint8 staging tensor (``kernels.price_rows.layout``);
+    ``pin`` pins it for the copy to the card."""
+    B = len(rows)
+    E = np.fromiter((r.n_edges for r in rows), np.int64, B)
+    deg = np.concatenate([r.in_deg for r in rows])
+    lay = _kernel.layout(B, int(E.sum()), int(deg.sum()))
+    stage = torch.empty(lay.nbytes, dtype=torch.uint8, pin_memory=pin)
+    host = stage.numpy()
+
+    def part(at, n, dtype):
+        return host[at:at + n * np.dtype(dtype).itemsize].view(dtype)
+
+    np.concatenate([r.floats for r in rows], axis=1,
+                   out=part(lay.floats, 7 * lay.N, np.float64
+                            ).reshape(7, lay.N))
+    part(lay.mem_stall, B, np.float64)[:] = [r.mem_stall for r in rows]
+    rp = part(lay.row_ptr, B + 1, np.int32)
+    rp[0] = 0
+    np.cumsum(E, out=rp[1:])
+    ip = part(lay.in_ptr, lay.N + 1, np.int32)
+    ip[0] = 0
+    np.cumsum(deg, out=ip[1:])
+    np.concatenate([r.in_idx for r in rows], out=part(lay.in_idx, lay.M,
+                                                       np.int32))
+    np.concatenate([r.flags for r in rows], out=part(lay.flags, lay.N,
+                                                     np.uint8))
+    return stage, lay
+
+
+def _assemble(rows: Sequence[PriceRow], out: np.ndarray,
+              lay: _kernel.Layout) -> List[SegmentCost]:
+    """``SegmentCost``s from the packed output of ``stage_rows(rows)``."""
+    B = lay.B
+    lat = out[:B].tolist()
+    hop_e = out[B:2 * B].tolist()
+    congested = out[2 * B:3 * B].tolist()
+    deltas = out[3 * B:].tolist()
+    costs = []
+    at = 0
+    for b, r in enumerate(rows):
+        # positional, in SegmentCost's field order: latency, compute,
+        # dram and sram bytes, hop, dram and sram energy, interval
+        # delays, intervals, congested
+        costs.append(SegmentCost(
+            lat[b], r.comp_lb, r.dram_bytes, r.sram_bytes, hop_e[b],
+            r.dram_energy, r.sram_energy, deltas[at:at + r.n_edges],
+            list(r.intervals), congested[b] != 0.0))
+        at += r.n_edges
+    return costs
+
+
+def price_rows(rows: Sequence[PriceRow], device=None) -> List[SegmentCost]:
+    """Price a batch of candidates: one kernel launch for all of them.
+
+    Depth-1 rows pass through their host cost.  The rest are staged
+    together (``stage_rows``) and priced on ``device`` (default ``cuda``,
+    which raises without a card; ``"cpu"`` runs the plain version on the
+    same staging tensor): one copy to the card, one launch, one copy of
+    the packed output back.  A call with only depth-1 rows touches no
+    device.
+    """
+    out: List[Optional[SegmentCost]] = [None] * len(rows)
+    idxs = []
+    for i, row in enumerate(rows):
+        if row.host_cost is not None:
+            out[i] = row.host_cost
+        else:
+            idxs.append(i)
+    if not idxs:
+        return out  # type: ignore[return-value]
+    dev = resolve_device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"price_rows runs on cuda or cpu, not {dev}")
+    priced = [rows[i] for i in idxs]
+    _count_buckets(priced)
+    stage, lay = stage_rows(priced, pin=dev.type == "cuda")
+    costs = _assemble(priced, _kernel.price_staged(stage, lay, dev), lay)
+    for i, cost in zip(idxs, costs):
+        out[i] = cost
     return out  # type: ignore[return-value]
 
+
+def synthetic_rows(edge_counts: Sequence[int], seed: int = 0,
+                   max_in_degree: int = 4) -> List[PriceRow]:
+    """Random candidates shaped like ``build_row``'s, one per entry of
+    ``edge_counts``: every edge takes up to ``max_in_degree`` earlier
+    edges of its row as incoming (edge order is a slot-DAG order), the
+    last edge and about a fifth of the others drain into the sink, about
+    70% carry NoC stats, and loads reach past the compute interval so
+    that some edges congest.  Made from ``seed`` with numpy, for the
+    kernel's checks beyond the shapes a planning run gives."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for E in edge_counts:
+        f = rng.uniform(0.0, 8.0, (7, E))
+        n = rng.integers(1, 4096, E)
+        f[2] = n
+        f[3] = np.minimum(n, rng.integers(1, 64, E))
+        sp = rng.random(E) < 0.7
+        fin = rng.random(E) < 0.2
+        fin[-1] = True
+        inc = np.zeros((E, E), bool)
+        in_deg = np.zeros(E, np.int32)
+        in_idx: List[int] = []
+        for k in range(1, E):
+            ins = np.sort(rng.choice(k, rng.integers(0, min(k, max_in_degree)
+                                                     + 1), replace=False))
+            inc[k, ins] = True
+            in_deg[k] = len(ins)
+            in_idx.extend(ins.tolist())
+        rows.append(PriceRow(
+            E, f, sp | (fin.astype(np.uint8) << 1), inc, in_deg,
+            np.asarray(in_idx, np.int32),
+            float(rng.uniform(0.0, 1e5)), 0.0, 0.0, 0.0, 0.0, 0.0,
+            n.tolist()))
+    return rows

@@ -1,28 +1,44 @@
 """Candidate pricing kernel of the torch planning engine.
 
-``price_rows`` prices a batch of DP candidates (one edge bucket) with the
+``price_rows`` prices every DP candidate of one planner call with the
 CUDA kernel in ``csrc/price_rows.cu``: the Fig. 3 interval recurrence of
-``repro.core.pipeline_model_jax._make_price_fn`` per candidate, one thread
-each, built without fused multiply-adds so that its float64 results are
-the host's to the last bit.  On a CPU tensor the wrapper computes the
-plain version ``price_rows_ref`` (batched over B, looping over E, line by
-line the reference's ``one``); on a CUDA tensor it launches the kernel or
-raises.  ``price_rows.launches`` counts launches.
+``repro.core.pipeline_model_jax._make_price_fn`` per candidate, one
+thread a row, built without fused multiply-adds so that its float64
+results are the host's to the last bit.  Rows of any edge count share
+one launch.  On CPU tensors the wrapper computes the plain version
+``price_rows_plain``; on CUDA tensors it launches the kernel or raises.
+``price_rows.launches`` counts launches.
 
-Both return ``(latency (B,), congested (B,) bool, hop_energy (B,),
-deltas (B, E))``.
+The ragged layout (B rows, N edges in all, M incoming entries):
+
+  floats     (7, N) float64  t_prod, t_cons, n, fill, load, hops, hop_unit
+  mem_stall  (B,)   float64
+  row_ptr    (B + 1,) int32  row b's edges are [row_ptr[b], row_ptr[b + 1])
+  flags      (N,)   uint8    bit 0: the edge has NoC stats (``sp``),
+                             bit 1: it drains into the sink (``fin``)
+  in_ptr     (N + 1,) int32  the incoming edges of edge e's producer slot
+  in_idx     (M,)   int32    are in_idx[in_ptr[e]:in_ptr[e + 1]], as
+                             indices within e's row, each below e's own
+
+and the output, packed so that it comes back in one copy:
+``(3 B + N,)`` float64, latency (B), hop energy (B), congested (B; 1.0
+or 0.0) and the deltas (N).  ``layout`` places the inputs in one staging
+tensor; ``price_staged`` is the planner's call on it.
+
+``price_rows_ref`` is the reference's ``one`` line by line, batched over
+candidates on padded (B, E) tensors; the plain version pads each edge
+bucket and calls it.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from . import build
-
-_FLOAT_NAMES = ("t_prod", "t_cons", "n", "fill", "load", "hops", "hop_unit")
 
 
 def price_rows_ref(t_prod: torch.Tensor, t_cons: torch.Tensor,
@@ -31,7 +47,11 @@ def price_rows_ref(t_prod: torch.Tensor, t_cons: torch.Tensor,
                    sp: torch.Tensor, fin: torch.Tensor, inc: torch.Tensor,
                    mem_stall: torch.Tensor
                    ) -> Tuple[torch.Tensor, ...]:
-    """Plain version: the reference's ``one``, batched over candidates."""
+    """The reference's ``one``, batched over candidates: (B, E) float64
+    rows, (B, E) bool ``sp``/``fin``, (B, E, E) bool ``inc`` (``inc[b, k,
+    d]``: edge d is incoming to edge k's producer slot), (B,) float64
+    ``mem_stall`` -> latency (B,), congested (B,) bool, hop energy (B,),
+    deltas (B, E)."""
     B, E = t_prod.shape
     deltas = torch.zeros_like(t_prod)
     pfill = torch.zeros_like(t_prod)
@@ -62,71 +82,271 @@ def price_rows_ref(t_prod: torch.Tensor, t_cons: torch.Tensor,
     return latency, congested, hop_e, deltas
 
 
+def bucket_edges(E: int) -> int:
+    """The reference's edge bucket: E padded to a power of two, floor 2."""
+    return max(2, 1 << (E - 1).bit_length())
+
+
+def price_rows_plain(floats: torch.Tensor, mem_stall: torch.Tensor,
+                     row_ptr: torch.Tensor, flags: torch.Tensor,
+                     in_ptr: torch.Tensor, in_idx: torch.Tensor
+                     ) -> torch.Tensor:
+    """Plain version of the ragged function: each edge bucket's rows
+    padded to (B_g, E_pad) and priced by ``price_rows_ref``.
+
+    Padding is exact: a padded edge (t = 0, n = 1, masks off, no incoming
+    edge) is incoming to no real edge, drains into nothing and adds +0.0
+    to the hop energy, and its delta is dropped, so every real edge's
+    result is the one the unpadded recurrence gives."""
+    B, N = mem_stall.shape[0], floats.shape[1]
+    dev = floats.device
+    out = torch.empty(3 * B + N, dtype=torch.float64, device=dev)
+    if B == 0:
+        return out
+    rp = row_ptr.long()
+    ip = in_ptr.long()
+    ix = in_idx.long()
+    sp_all = (flags & 1).bool()
+    fin_all = (flags & 2).bool()
+    E = rp[1:] - rp[:-1]
+    buckets = torch.tensor([bucket_edges(e) for e in E.tolist()],
+                           device=dev)
+    for e_pad in sorted(set(buckets.tolist())):
+        rows = torch.nonzero(buckets == e_pad).flatten()
+        Bg = rows.numel()
+        k = torch.arange(e_pad, device=dev)
+        real = k < E[rows, None]                             # (Bg, e_pad)
+        edge = torch.where(real, rp[rows, None] + k, 0)
+        g = torch.where(real, floats[:, edge], 0.0)          # (7, Bg, e_pad)
+        g[2] = torch.where(real, g[2], 1.0)
+        sp = real & sp_all[edge]
+        fin = real & fin_all[edge]
+        # incidence from the incoming lists of the real edges
+        slot = torch.nonzero(real.flatten()).flatten()      # b * e_pad + k
+        e = edge.flatten()[slot]
+        deg = ip[e + 1] - ip[e]
+        owner = torch.repeat_interleave(slot, deg)
+        first = torch.repeat_interleave(ip[e] - (torch.cumsum(deg, 0) - deg),
+                                        deg)
+        j = first + torch.arange(owner.numel(), device=dev)
+        inc = torch.zeros(Bg * e_pad, e_pad, dtype=torch.bool, device=dev)
+        inc[owner, ix[j]] = True
+        lat, cong, hop_e, deltas = price_rows_ref(
+            *g, sp, fin, inc.view(Bg, e_pad, e_pad), mem_stall[rows])
+        out[rows] = lat
+        out[B + rows] = hop_e
+        out[2 * B + rows] = cong.double()
+        out[3 * B + edge[real]] = deltas[real]
+    return out
+
+
+class Plan(NamedTuple):
+    """How a launch splits its rows over blocks (``price_rows_plan`` in
+    the CUDA source): rows a block, dynamic shared memory a block, the
+    blocks, and the blocks whose rows stage in global scratch."""
+    rows_per_block: int
+    smem_bytes: int
+    blocks: int
+    global_blocks: int
+
+    @property
+    def regime(self) -> str:
+        if self.global_blocks == 0:
+            return "shared"
+        return "global" if self.global_blocks == self.blocks else "mixed"
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("price_rows")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.price_rows_launch.argtypes = [p] * 16 + [i, i, p]
+    lib.price_rows_plan.argtypes = [p, p, i, p]
+    lib.price_rows_plan.restype = i
+    lib.price_rows_scratch_bytes.argtypes = [i, i, i, i]
+    lib.price_rows_scratch_bytes.restype = ctypes.c_longlong
+    lib.price_rows_launch.argtypes = [p] * 6 + [i] * 5 + [p, p, p]
     lib.price_rows_launch.restype = i
+    ll = ctypes.c_longlong
+    lib.price_rows_round_trip.argtypes = [p, ll, p, i, i, i, p, ll, ll, p,
+                                          p, p, p]
+    lib.price_rows_round_trip.restype = i
     lib.price_rows_error_string.argtypes = [i]
     lib.price_rows_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def price_rows(t_prod: torch.Tensor, t_cons: torch.Tensor, n: torch.Tensor,
-               fill: torch.Tensor, load: torch.Tensor, hops: torch.Tensor,
-               hop_unit: torch.Tensor, sp: torch.Tensor, fin: torch.Tensor,
-               inc: torch.Tensor, mem_stall: torch.Tensor
-               ) -> Tuple[torch.Tensor, ...]:
-    """(B, E) float64 ``t_prod .. hop_unit``, (B, E) bool ``sp``/``fin``,
-    (B, E, E) bool ``inc``, (B,) float64 ``mem_stall`` -> latency (B,),
-    congested (B,) bool, hop energy (B,), deltas (B, E)."""
-    floats = (t_prod, t_cons, n, fill, load, hops, hop_unit)
-    if t_prod.ndim != 2 or t_prod.shape[1] == 0:
-        raise ValueError(f"price_rows takes (B, E) rows with E >= 1, got "
-                         f"t_prod {tuple(t_prod.shape)}")
-    B, E = t_prod.shape
-    for name, t in zip(_FLOAT_NAMES, floats):
-        if tuple(t.shape) != (B, E):
-            raise ValueError(f"{name} is {tuple(t.shape)}, not ({B}, {E})")
-    if tuple(sp.shape) != (B, E) or tuple(fin.shape) != (B, E):
-        raise ValueError(f"sp/fin must be ({B}, {E})")
-    if tuple(inc.shape) != (B, E, E) or tuple(mem_stall.shape) != (B,):
-        raise ValueError(f"inc must be ({B}, {E}, {E}) and mem_stall ({B},)")
-    tensors = (*floats, sp, fin, inc, mem_stall)
-    if any(t.device != t_prod.device for t in tensors):
+def _plan(row_ptr: int, in_ptr: int, B: int) -> Plan:
+    """The block plan from the host addresses of row_ptr and in_ptr."""
+    lib = _library()
+    plan = (ctypes.c_int * 4)()
+    err = lib.price_rows_plan(row_ptr, in_ptr, B, plan)
+    if err != 0:
+        raise RuntimeError("price_rows plan failed: "
+                           + lib.price_rows_error_string(err).decode())
+    return Plan(*plan)
+
+
+def block_plan(row_ptr: torch.Tensor, in_ptr: torch.Tensor) -> Plan:
+    """The block plan of a call (the card's library computes it on the
+    host, so this needs the built kernel)."""
+    rp = row_ptr.to("cpu", torch.int32).contiguous()
+    ip = in_ptr.to("cpu", torch.int32).contiguous()
+    return _plan(rp.data_ptr(), ip.data_ptr(), rp.numel() - 1)
+
+
+def price_rows(floats: torch.Tensor, mem_stall: torch.Tensor,
+               row_ptr: torch.Tensor, flags: torch.Tensor,
+               in_ptr: torch.Tensor, in_idx: torch.Tensor,
+               plan: Plan = None) -> torch.Tensor:
+    """The ragged inputs (module docstring) -> (3 B + N,) float64.
+
+    On the card the block plan is read from row_ptr and in_ptr, which
+    copies them to the host, unless the caller passes ``plan``."""
+    B = mem_stall.shape[0]
+    N = floats.shape[1] if floats.ndim == 2 else -1
+    M = in_idx.shape[0]
+    tensors = (floats, mem_stall, row_ptr, flags, in_ptr, in_idx)
+    if (floats.shape != (7, N) or mem_stall.ndim != 1
+            or row_ptr.shape != (B + 1,) or flags.shape != (N,)
+            or in_ptr.shape != (N + 1,) or in_idx.ndim != 1):
+        raise ValueError(
+            "price_rows takes floats (7, N), mem_stall (B,), row_ptr "
+            "(B + 1,), flags (N,), in_ptr (N + 1,), in_idx (M,); got "
+            f"{[tuple(t.shape) for t in tensors]}")
+    dev = floats.device
+    if any(t.device != dev for t in tensors):
         raise ValueError("price_rows inputs must lie on one device")
-    if any(t.dtype != torch.float64 for t in (*floats, mem_stall)):
-        raise TypeError("price_rows takes float64 rows and mem_stall")
-    if any(t.dtype != torch.bool for t in (sp, fin, inc)):
-        raise TypeError("price_rows takes bool sp, fin and inc")
-    if t_prod.device.type == "cpu":
-        return price_rows_ref(*tensors)
-    if t_prod.device.type != "cuda":
-        raise ValueError(f"price_rows runs on cuda or cpu, not "
-                         f"{t_prod.device}")
+    if (floats.dtype != torch.float64 or mem_stall.dtype != torch.float64
+            or flags.dtype != torch.uint8
+            or any(t.dtype != torch.int32
+                   for t in (row_ptr, in_ptr, in_idx))):
+        raise TypeError("price_rows takes float64 floats and mem_stall, "
+                        "uint8 flags, int32 row_ptr, in_ptr and in_idx")
+    if dev.type == "cpu":
+        return price_rows_plain(*tensors)
+    if dev.type != "cuda":
+        raise ValueError(f"price_rows runs on cuda or cpu, not {dev}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("price_rows takes contiguous inputs")
-    kw = dict(dtype=torch.float64, device=t_prod.device)
-    latency = torch.empty(B, **kw)
-    hop_e = torch.empty(B, **kw)
-    deltas = torch.empty(B, E, **kw)
-    pfill = torch.empty(B, E, **kw)
-    congested = torch.empty(B, dtype=torch.bool, device=t_prod.device)
     if B == 0:
-        return latency, congested, hop_e, deltas
+        return floats.new_empty(3 * B + N)
+    if plan is None:
+        plan = block_plan(row_ptr, in_ptr)
+    return _launch(dev, tuple(t.data_ptr() for t in tensors), B, N, M, plan)
+
+
+price_rows.launches = 0
+
+
+def _launch(dev: torch.device, addrs: Tuple[int, ...], B: int, N: int,
+            M: int, plan: Plan) -> torch.Tensor:
+    """One launch on ``dev`` over the ragged inputs at ``addrs`` (floats,
+    mem_stall, row_ptr, flags, in_ptr, in_idx); counts it.  The output
+    and, where the plan has global blocks, the scratch after it are one
+    allocation."""
     lib = _library()
-    with torch.cuda.device(t_prod.device):
-        stream = torch.cuda.current_stream(t_prod.device).cuda_stream
+    n_out = 3 * B + N
+    at = n_out + n_out % 2                  # the scratch 16-byte aligned
+    scratch = (lib.price_rows_scratch_bytes(B, N, M, plan.blocks) // 8
+               if plan.global_blocks else 0)
+    work = torch.empty(at + scratch, dtype=torch.float64, device=dev)
+    p = work.data_ptr()
+    with build.on_device(dev):
         err = lib.price_rows_launch(
-            *(t.data_ptr() for t in tensors), latency.data_ptr(),
-            congested.data_ptr(), hop_e.data_ptr(), deltas.data_ptr(),
-            pfill.data_ptr(), B, E, stream)
+            *addrs, B, N, M, plan.rows_per_block, plan.smem_bytes,
+            p + 8 * at if scratch else None, p, build.launch_stream(dev))
     if err != 0:
         raise RuntimeError("price_rows launch failed: "
                            + lib.price_rows_error_string(err).decode())
     price_rows.launches += 1
-    return latency, congested, hop_e, deltas
+    return work[:n_out]
 
 
-price_rows.launches = 0
+# ---------------------------------------------------------------------------
+# the staging tensor
+# ---------------------------------------------------------------------------
+
+
+class Layout(NamedTuple):
+    """Byte offsets of the ragged inputs in one staging tensor, each
+    8-byte aligned so that every part views as its own dtype, and of the
+    room after them where the card's packed output lands."""
+    B: int
+    N: int
+    M: int
+    floats: int
+    mem_stall: int
+    row_ptr: int
+    flags: int
+    in_ptr: int
+    in_idx: int
+    out: int
+    nbytes: int
+
+
+def layout(B: int, N: int, M: int) -> Layout:
+    sizes = (56 * N, 8 * B, 4 * (B + 1), N, 4 * (N + 1), 4 * M,
+             8 * (3 * B + N))
+    offsets, at = [], 0
+    for size in sizes:
+        offsets.append(at)
+        at += -(-size // 8) * 8
+    return Layout(B, N, M, *offsets, at)
+
+
+def unstage(stage: torch.Tensor, lay: Layout) -> Tuple[torch.Tensor, ...]:
+    """The six inputs as views of a uint8 staging tensor."""
+    def part(at, n, dtype, size):
+        return stage[at:at + n * size].view(dtype)
+
+    return (part(lay.floats, 7 * lay.N, torch.float64, 8).view(7, lay.N),
+            part(lay.mem_stall, lay.B, torch.float64, 8),
+            part(lay.row_ptr, lay.B + 1, torch.int32, 4),
+            part(lay.flags, lay.N, torch.uint8, 1),
+            part(lay.in_ptr, lay.N + 1, torch.int32, 4),
+            part(lay.in_idx, lay.M, torch.int32, 4))
+
+
+#: cudaErrorMemoryAllocation: the round trip's device buffer is too small
+_OUT_OF_ROOM = 2
+
+
+def price_staged(stage: torch.Tensor, lay: Layout, device: torch.device
+                 ) -> np.ndarray:
+    """Price the rows staged in ``stage`` (a host uint8 tensor, pinned
+    for the card) on ``device`` and return the packed output on the host.
+
+    On ``cuda``: one call into the library (``price_rows_round_trip``)
+    takes the block plan from the staged host copy, copies the inputs to
+    the card once, launches once on addresses inside that copy, copies
+    the output back into the staging tensor's room for it, and waits for
+    the stream.  On ``cpu``: the plain version on views of the same
+    tensor.  At least one row."""
+    if device.type == "cpu":
+        return price_rows(*unstage(stage, lay)).numpy()
+    if device.type != "cuda":
+        raise ValueError(f"price_rows runs on cuda or cpu, not {device}")
+    lib = _library()
+    n_out = 3 * lay.B + lay.N
+    out_at = -(-lay.out // 16) * 16
+    at = (ctypes.c_longlong * 6)(lay.floats, lay.mem_stall, lay.row_ptr,
+                                 lay.flags, lay.in_ptr, lay.in_idx)
+    plan = (ctypes.c_int * 4)()
+    need = ctypes.c_longlong(out_at + 8 * n_out)
+    host = stage.data_ptr()
+    while True:      # a second pass only where global blocks need scratch
+        work = torch.empty(need.value, dtype=torch.uint8, device=device)
+        dev = work.device
+        with build.on_device(dev):
+            err = lib.price_rows_round_trip(
+                host, lay.out, at, lay.B, lay.N, lay.M, work.data_ptr(),
+                need.value, out_at, host + lay.out,
+                build.launch_stream(dev), plan, ctypes.byref(need))
+        if err != _OUT_OF_ROOM or need.value <= work.numel():
+            break
+    if err != 0:
+        raise RuntimeError("price_rows round trip failed: "
+                           + lib.price_rows_error_string(err).decode())
+    price_rows.launches += 1
+    return stage.numpy()[lay.out:lay.out + 8 * n_out].view(
+        np.float64).copy()

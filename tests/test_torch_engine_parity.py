@@ -87,7 +87,8 @@ def _assert_cost_parity(cn, ct):
 def _reference_price(row):
     """The reference's jax ``price_rows`` on the port's row arrays."""
     fields = {f.name: getattr(row, f.name)
-              for f in dataclasses.fields(row) if f.name != "host_cost"}
+              for f in dataclasses.fields(rpm_jax.PriceRow)
+              if f.name != "host_cost"}
     return rpm_jax.price_rows([rpm_jax.PriceRow(**fields)])[0]
 
 

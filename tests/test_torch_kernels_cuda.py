@@ -195,40 +195,48 @@ def test_maxplus_kernel_takes_unaligned_rows():
                                rtol=1e-12, atol=0.0)
 
 
-def _price_inputs(B, E, seed=0):
-    """Random candidates shaped like ``build_row``'s: a chain plus forks,
-    every edge's incoming edges before it, one final edge at least."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    f = rng.uniform(0.0, 8.0, (7, B, E))
-    f[2] = rng.integers(1, 4096, (B, E)).astype(np.float64)     # n >= 1
-    f[3] = np.minimum(f[2], rng.integers(1, 64, (B, E)))        # fill
-    sp = rng.random((B, E)) < 0.7
-    fin = np.zeros((B, E), bool)
-    fin[:, -1] = True
-    fin[:, :-1] = rng.random((B, E - 1)) < 0.2
-    inc = np.tril(rng.random((B, E, E)) < 0.4, k=-1)
-    stall = rng.uniform(0.0, 1e5, B)
-    t = [torch.from_numpy(a).cuda() for a in f]
-    return (*t, torch.from_numpy(sp).cuda(), torch.from_numpy(fin).cuda(),
-            torch.from_numpy(inc).cuda(), torch.from_numpy(stall).cuda())
+def _ragged_inputs(edge_counts, seed=0):
+    """Random candidates of the given edge counts (``synthetic_rows``:
+    up to 4 incoming edges an edge) staged as one call, on the card."""
+    from repro_torch.core import pipeline_model_torch as pmt
+    from repro_torch.kernels.price_rows import unstage
+    stage, lay = pmt.stage_rows(pmt.synthetic_rows(edge_counts, seed=seed))
+    return unstage(stage.cuda(), lay)
 
 
-@pytest.mark.parametrize("B,E", [(229, 8), (1, 2), (523, 4), (8, 32),
-                                 (70, 17)])
-def test_price_rows_kernel_matches_plain(B, E):
-    from repro_torch.kernels.price_rows import price_rows, price_rows_ref
+#: (label, edge counts, regime): a planner call's mix, all 1539 rows of a
+#: plan run's size, rows past the reference's 32-edge bucket, and rows too
+#: large for a block's shared memory (alone, or beside small ones)
+_PRICE_CALLS = [
+    ("mixed", [2, 3, 5, 8, 17, 31] * 40, "shared"),
+    ("plan-run", [1 + (7 * i) % 31 for i in range(1539)], "shared"),
+    ("wide", [33, 70, 200] * 4 + [2] * 20, "shared"),
+    ("one-row", [31], "shared"),
+    ("mixed-regime", [600] + [4] * 40 + [70], "mixed"),
+    ("global", [600, 900], "global")]
+
+
+@pytest.mark.parametrize("label,edges,regime", _PRICE_CALLS,
+                         ids=[c[0] for c in _PRICE_CALLS])
+def test_price_rows_kernel_matches_plain(label, edges, regime):
+    """Every row of a ragged call bit-equal to the plain version, two
+    calls bit-equal, one launch a call, the block plan's regime."""
+    from repro_torch.kernels.price_rows import (block_plan, price_rows,
+                                                price_rows_plain)
     _need_card()
-    args = _price_inputs(B, E, seed=B + E)
+    args = _ragged_inputs(edges, seed=len(edges))
+    plan = block_plan(args[2], args[4])
+    assert plan.regime == regime
     before = price_rows.launches
     got = price_rows(*args)
+    again = price_rows(*args, plan=plan)
     torch.cuda.synchronize()
-    assert price_rows.launches == before + 1
-    want = price_rows_ref(*args)
+    assert price_rows.launches == before + 2
     # built without FMA, in the host's order: bit-equal to the plain path
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and g.shape == w.shape
-        assert torch.equal(g, w)
+    want = price_rows_plain(*args)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
 
 
 def test_planner_prices_and_simulates_on_the_card():
@@ -242,11 +250,25 @@ def test_planner_prices_and_simulates_on_the_card():
     g = all_tasks()["keyword_spotting"]
     span_cache_clear()
     pipeline_model_torch.price_cache_clear()
+    # one launch for each pricing call that has rows with a recurrence,
+    # whatever their edge buckets
+    calls = []
+    real = pipeline_model_torch.price_rows
+
+    def recording(rows, device=None):
+        calls.append(any(r.host_cost is None for r in rows))
+        return real(rows, device=device)
+
     before = price_rows.launches
-    pt = Planner(maxsize=2).plan(PlanRequest(g, hw=PAPER_HW,
-                                             topology=Topology.AMP))
+    pipeline_model_torch.price_rows = recording
+    try:
+        pt = Planner(maxsize=2).plan(PlanRequest(g, hw=PAPER_HW,
+                                                 topology=Topology.AMP))
+    finally:
+        pipeline_model_torch.price_rows = real
     hits, misses, _, _ = pipeline_model_torch.price_cache_info()
-    assert price_rows.launches - before == hits + misses > 0
+    assert price_rows.launches - before == sum(calls) > 0
+    assert hits + misses >= sum(calls)
     pn = Planner(maxsize=2).plan(PlanRequest(g, hw=PAPER_HW,
                                              topology=Topology.AMP,
                                              engine="numpy"))
