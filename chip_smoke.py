@@ -828,67 +828,60 @@ def _us_to_ms(us):
 
 
 def _price_bound(lay, n_final: int):
-    """Bound of one ragged call: each staged input read once and the
-    packed output written once; ~16 float64 operations per edge, 4 per
-    incoming entry (divide, multiply, two maxima), 3 per final edge and
-    1 per row."""
-    from repro_torch.kernels.price_rows import layout
-    nbytes = layout(lay.B, lay.N, lay.M).nbytes + 8 * (3 * lay.B + lay.N)
-    ops = 16 * lay.N + 4 * lay.M + 3 * n_final + lay.B
+    """Bound of one ragged call: each input read once (the seven float64
+    edge arrays, mem_stall, row_ptr, the flag bytes, in_ptr, in_idx) and
+    the packed output written once; ~16 float64 operations per edge, 4
+    per incoming entry (divide, multiply, two maxima), 3 per final edge
+    and 1 per row."""
+    B, N, M = lay.B, lay.N, lay.M
+    nbytes = (56 * N + 8 * B + 4 * (B + 1) + N + 4 * (N + 1) + 4 * M
+              + 8 * (3 * B + N))
+    ops = 16 * N + 4 * M + 3 * n_final + B
     return _bound(nbytes, ops, "float64")
 
 
 def check_price_rows(label: str, rows, floor_ms: float, timed: bool = True):
-    """One call's rows, staged as the planner stages them: the kernel
-    against its plain version on the same device tensors, bit for bit,
-    and two calls bitwise equal; with ``timed``, its times, bound and
-    block plan."""
+    """One call's rows, staged as the planner stages them and priced
+    through the planner's round trip (``kernels.price_rows.price_rows``):
+    against the plain version on the same inputs on the card, bit for
+    bit, and two calls bitwise equal; with ``timed``, its times, bound
+    and block plan."""
     import numpy as np
     import torch
     from repro_torch.core.pipeline_model_torch import stage_rows
     from repro_torch.kernels.price_rows import (block_plan, price_rows,
-                                                price_rows_plain,
-                                                price_staged, unstage)
+                                                price_rows_plain, unstage)
+    dev = torch.device("cuda")
     stage, lay = stage_rows(rows, pin=True)
-    args = unstage(stage.cuda(), lay)
-    plan = block_plan(args[2], args[4])
-    got = price_rows(*args, plan=plan)
-    again = price_rows(*args, plan=plan)
-    exp = price_rows_plain(*args)
-    staged = price_staged(stage, lay, torch.device("cuda"))
-    torch.cuda.synchronize()
-    bit_equal = bool(torch.equal(got, exp))
-    repeatable = bool(torch.equal(got, again))
-    check(bit_equal and repeatable
-          and np.array_equal(staged, got.cpu().numpy()),
+    plan = block_plan(stage, lay)
+    got = price_rows(stage, lay, dev)
+    again = price_rows(stage, lay, dev)
+    args = unstage(stage.to(dev), lay)
+    exp = price_rows_plain(*args).cpu().numpy()
+    bit_equal = bool(np.array_equal(got, exp))
+    repeatable = bool(np.array_equal(got, again))
+    check(bit_equal and repeatable,
           f"price_rows {label}: kernel bit-equal to plain: {bit_equal}, "
-          f"repeatable: {repeatable}, staged call equal: "
-          f"{np.array_equal(staged, got.cpu().numpy())}")
+          f"repeatable: {repeatable}")
     edges = [r.n_edges for r in rows]
     row = {"shape": label, "B": lay.B, "N": lay.N, "M": lay.M,
            "E_max": max(edges), "E_min": min(edges),
-           "max_abs_err": float((got - exp).abs().max()),
+           "max_abs_err": float(np.abs(got - exp).max()),
            "bit_equal": bit_equal, "repeatable": repeatable,
            "regime": plan.regime, "rows_per_block": plan.rows_per_block,
            "smem_bytes": plan.smem_bytes, "blocks": plan.blocks,
            "global_blocks": plan.global_blocks,
            "device_ms": _us_to_ms(device_us(
-               lambda: price_rows(*args, plan=plan), "price_rows_kernel",
+               lambda: price_rows(stage, lay, dev), "price_rows_kernel",
                per_call=1))}
     if timed:
         sync = torch.cuda.synchronize
-        dev = torch.device("cuda")
-        n_calls = 200
-        price_staged(stage, lay, dev)
-        t0 = time.perf_counter()
-        for _ in range(n_calls):
-            price_staged(stage, lay, dev)
-        call_ms = (time.perf_counter() - t0) / n_calls * 1e3
         bound_ms, bound_by = _price_bound(
             lay, sum(int(r.final.sum()) for r in rows))
+        # ms: the whole round trip a call (copy up, launch, copy down,
+        # wait), as the planner makes it
         row.update(
-            ms=time_ms(lambda: price_rows(*args, plan=plan), sync),
-            call_ms=call_ms,
+            ms=time_ms(lambda: price_rows(stage, lay, dev), sync),
             plain_ms=time_ms(lambda: price_rows_plain(*args), sync),
             launch_floor_ms=floor_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None)
@@ -992,25 +985,38 @@ def phase_planner():
         """One pass over the tasks from cold caches; with the torch
         engine, the device rows of each pricing call and the host time
         of its parts (packing, the copy-launch-copy round trip,
-        ``SegmentCost`` assembly)."""
+        ``SegmentCost`` assembly).  The round trip is the time from the
+        end of packing to the start of assembly, between which
+        ``pipeline_model_torch.price_rows`` makes only the kernel's
+        call, so that the kernel's wrapper itself is not replaced."""
         _cold_planner_caches()
         calls = []
         clock = dict.fromkeys(("price_rows", "pack", "round_trip",
                                "assemble"), 0.0)
         trips = []
-        real = (pmt.price_rows, pmt.stage_rows, kpr.price_staged,
-                pmt._assemble)
+        packed = [0.0]
+        real = (pmt.price_rows, pmt.stage_rows, pmt._assemble)
 
         def recording(rows, device=None):
             calls.append([r for r in rows if r.host_cost is None])
             return real[0](rows, device=device)
 
+        def packing(*args, **kwargs):
+            out = timed(real[1], "pack", clock)(*args, **kwargs)
+            packed[0] = time.perf_counter()
+            return out
+
+        def assembling(*args, **kwargs):
+            dt = time.perf_counter() - packed[0]
+            clock["round_trip"] += dt
+            trips.append(dt)
+            return timed(real[2], "assemble", clock)(*args, **kwargs)
+
         kpr.price_rows.launches = 0
         if engine == "torch":
             pmt.price_rows = timed(recording, "price_rows", clock)
-            pmt.stage_rows = timed(real[1], "pack", clock)
-            kpr.price_staged = timed(real[2], "round_trip", clock, trips)
-            pmt._assemble = timed(real[3], "assemble", clock)
+            pmt.stage_rows = packing
+            pmt._assemble = assembling
         plans, wall = {}, {}
         try:
             for name in sorted(tasks):
@@ -1021,8 +1027,7 @@ def phase_planner():
                 torch.cuda.synchronize()
                 wall[name] = time.perf_counter() - t0
         finally:
-            (pmt.price_rows, pmt.stage_rows, kpr.price_staged,
-             pmt._assemble) = real
+            pmt.price_rows, pmt.stage_rows, pmt._assemble = real
         device_calls = [c for c in calls if c]
         return {"plans": plans, "wall": wall, "calls": device_calls,
                 "launches": kpr.price_rows.launches,
@@ -1131,7 +1136,7 @@ def phase_price_rows(calls, floor_ms: float):
     every real call of the planning run; timed on the largest call, the
     call holding the widest rows, every device row of the run in one
     call, and the synthetic calls."""
-    from repro_torch.core.pipeline_model_torch import synthetic_rows
+    from repro_torch.testing import synthetic_rows
     each = [check_price_rows(f"call {i}", rows, floor_ms, timed=False)
             for i, rows in enumerate(calls)]
     e_max = max(r.n_edges for c in calls for r in c)
@@ -1888,7 +1893,7 @@ def main() -> None:
     wide = next(r for r in pr_rows
                 if r["shape"] == f"call with E={plan['edges_max']}")
     kernels[-1].update({
-        "regime": pr["regime"], "call_ms": pr["call_ms"],
+        "regime": pr["regime"],
         "calls": plan["calls"], "groups": plan["groups"],
         "plan_device_ms": plan["plan_device_ms"],
         "widest_E": plan["edges_max"], "widest_B": wide["B"],

@@ -71,17 +71,16 @@ class PriceRow:
     also readable by its name: ``row.t_prod`` is ``row.floats[0]``) and
     ``flags`` the two per-edge masks (bit 0 ``stats_present``, bit 1
     ``final``), so that a call's rows stage in one copy each.
-    ``inc[k, d]`` marks edge d as incoming to edge k's producer slot (the
-    producer-side rate-chain adjacency), and ``in_deg`` / ``in_idx`` hold
-    the same as lists, the kernel's input: edge k's incoming edges are
-    the next ``in_deg[k]`` entries of ``in_idx``, in edge order.
+    ``in_deg`` / ``in_idx`` list the producer-side rate-chain adjacency,
+    the kernel's input: edge k's incoming edges (the edges into its
+    producer slot) are the next ``in_deg[k]`` entries of ``in_idx``, in
+    edge order; ``inc`` is the same as the reference's (E, E) matrix.
     ``host_cost`` short-circuits depth-1 candidates, which have no
     recurrence and are priced entirely on the host.
     """
     n_edges: int
     floats: np.ndarray          # float64 (7, E); n_bursts >= 1
     flags: np.ndarray           # uint8 (E,)
-    inc: np.ndarray             # bool (E, E)
     in_deg: np.ndarray          # int32 (E,)
     in_idx: np.ndarray          # int32 (sum of in_deg,)
     mem_stall: float
@@ -103,6 +102,15 @@ class PriceRow:
     def final(self) -> np.ndarray:
         """bool: the edge drains into the sink slot."""
         return (self.flags & 2).astype(bool)
+
+    @property
+    def inc(self) -> np.ndarray:
+        """bool (E, E): ``inc[k, d]`` marks edge d as incoming to edge k's
+        producer slot, the reference's form of the incoming lists."""
+        E = self.n_edges
+        inc = np.zeros((E, E), bool)
+        inc[np.repeat(np.arange(E), self.in_deg), self.in_idx] = True
+        return inc
 
 
 for _j, _name in enumerate(_FLOAT_FIELDS):
@@ -136,10 +144,10 @@ def build_row(
                             external_out_bytes, skip_in_bytes,
                             array_pes=array_pes, edges=edges)
         return PriceRow(0, np.zeros((7, 0)), np.zeros(0, np.uint8),
-                        np.zeros((0, 0), bool), np.zeros(0, np.int32),
-                        np.zeros(0, np.int32), 0.0, cost.dram_bytes,
-                        cost.sram_bytes, cost.compute_cycles,
-                        cost.dram_energy, cost.sram_energy,
+                        np.zeros(0, np.int32), np.zeros(0, np.int32), 0.0,
+                        cost.dram_bytes, cost.sram_bytes,
+                        cost.compute_cycles, cost.dram_energy,
+                        cost.sram_energy,
                         list(cost.intervals), host_cost=cost)
 
     edge_list = tuple(edges) if edges is not None else chain_edges(D)
@@ -166,7 +174,6 @@ def build_row(
     n_bursts[:] = 1.0
     sp = np.zeros(E, bool)
     fin = np.zeros(E, bool)
-    inc = np.zeros((E, E), bool)
     in_deg = np.zeros(E, np.int32)
     in_idx: List[int] = []
     intervals: List[int] = []
@@ -195,13 +202,11 @@ def build_row(
         ins = incoming.get(u, ())
         in_deg[k] = len(ins)
         in_idx.extend(ins)
-        for d in ins:
-            inc[k, d] = True
 
     if not fin.any():
         raise ValueError("pipeline DAG has no edge into the final slot")
-    return PriceRow(E, floats, sp | (fin.astype(np.uint8) << 1), inc,
-                    in_deg, np.asarray(in_idx, np.int32), mem_stall, dram,
+    return PriceRow(E, floats, sp | (fin.astype(np.uint8) << 1), in_deg,
+                    np.asarray(in_idx, np.int32), mem_stall, dram,
                     sram_traffic, comp_lb, dram * hw.e_dram,
                     sram_traffic * hw.e_sram, intervals)
 
@@ -321,43 +326,7 @@ def price_rows(rows: Sequence[PriceRow], device=None) -> List[SegmentCost]:
     priced = [rows[i] for i in idxs]
     _count_buckets(priced)
     stage, lay = stage_rows(priced, pin=dev.type == "cuda")
-    costs = _assemble(priced, _kernel.price_staged(stage, lay, dev), lay)
+    costs = _assemble(priced, _kernel.price_rows(stage, lay, dev), lay)
     for i, cost in zip(idxs, costs):
         out[i] = cost
     return out  # type: ignore[return-value]
-
-
-def synthetic_rows(edge_counts: Sequence[int], seed: int = 0,
-                   max_in_degree: int = 4) -> List[PriceRow]:
-    """Random candidates shaped like ``build_row``'s, one per entry of
-    ``edge_counts``: every edge takes up to ``max_in_degree`` earlier
-    edges of its row as incoming (edge order is a slot-DAG order), the
-    last edge and about a fifth of the others drain into the sink, about
-    70% carry NoC stats, and loads reach past the compute interval so
-    that some edges congest.  Made from ``seed`` with numpy, for the
-    kernel's checks beyond the shapes a planning run gives."""
-    rng = np.random.default_rng(seed)
-    rows = []
-    for E in edge_counts:
-        f = rng.uniform(0.0, 8.0, (7, E))
-        n = rng.integers(1, 4096, E)
-        f[2] = n
-        f[3] = np.minimum(n, rng.integers(1, 64, E))
-        sp = rng.random(E) < 0.7
-        fin = rng.random(E) < 0.2
-        fin[-1] = True
-        inc = np.zeros((E, E), bool)
-        in_deg = np.zeros(E, np.int32)
-        in_idx: List[int] = []
-        for k in range(1, E):
-            ins = np.sort(rng.choice(k, rng.integers(0, min(k, max_in_degree)
-                                                     + 1), replace=False))
-            inc[k, ins] = True
-            in_deg[k] = len(ins)
-            in_idx.extend(ins.tolist())
-        rows.append(PriceRow(
-            E, f, sp | (fin.astype(np.uint8) << 1), inc, in_deg,
-            np.asarray(in_idx, np.int32),
-            float(rng.uniform(0.0, 1e5)), 0.0, 0.0, 0.0, 0.0, 0.0,
-            n.tolist()))
-    return rows

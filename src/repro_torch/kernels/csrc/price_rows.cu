@@ -152,7 +152,7 @@ __device__ __forceinline__ Work carve_shared(char* p, int ne, int nj,
 }
 
 // The same arrays over the whole call in global scratch (sized by
-// price_rows_scratch_bytes, 16-byte aligned), offset to block b's
+// scratch_bytes, 16-byte aligned), offset to block b's
 // slices; row_ptr takes one more slot per block.
 __device__ __forceinline__ Work carve_global(char* p, const Inputs& in,
                                              int b, int e0, int j0, int r0) {
@@ -331,6 +331,44 @@ price_rows_kernel(Inputs in, int rows_per_block, int smem_bytes,
   }
 }
 
+// Bytes of the global scratch carve_global lays out, rounded up to 16;
+// the scratch must start 16-byte aligned.
+long long scratch_bytes(int n_rows, int n_edges, int n_entries,
+                        int blocks) {
+  const long long b = block_bytes(n_edges, n_entries, n_rows) + 4LL * blocks;
+  return (b + 15) / 16 * 16;
+}
+
+// Inputs as in Inputs above (device pointers); out: (3 B + N,) float64,
+// latency (B), hop energy (B), congested (B; 1.0 or 0.0), deltas (N).
+// rows_per_block and smem_bytes from price_rows_plan; scratch (device,
+// scratch_bytes, 16-byte aligned) may be null when the plan has no
+// global block.
+// Launches on `stream` and returns cudaGetLastError().
+int launch(const void* f, const void* mem_stall, const void* row_ptr,
+           const void* flags, const void* in_ptr, const void* in_idx,
+           int n_rows, int n_edges, int n_entries, int rows_per_block,
+           int smem_bytes, void* scratch, void* out, void* stream) {
+  if (n_rows <= 0 || n_edges <= 0 || n_entries < 0 || rows_per_block < 1 ||
+      rows_per_block > kMaxRows || smem_bytes < 0 ||
+      smem_bytes > kSmemLimit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Inputs in{static_cast<const double*>(f),
+                  static_cast<const double*>(mem_stall),
+                  static_cast<const int*>(row_ptr),
+                  static_cast<const uint8_t*>(flags),
+                  static_cast<const int*>(in_ptr),
+                  static_cast<const int*>(in_idx), n_rows, n_edges,
+                  n_entries};
+  const int blocks = (n_rows + rows_per_block - 1) / rows_per_block;
+  price_rows_kernel<<<blocks, kThreads, smem_bytes,
+                      static_cast<cudaStream_t>(stream)>>>(
+      in, rows_per_block, smem_bytes, static_cast<char*>(scratch),
+      static_cast<double*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -368,46 +406,6 @@ int price_rows_plan(const int* row_ptr, const int* in_ptr, int n_rows,
   }
 }
 
-// Bytes of the global scratch carve_global lays out, rounded up to 16;
-// the scratch must start 16-byte aligned.
-long long price_rows_scratch_bytes(int n_rows, int n_edges, int n_entries,
-                                   int blocks) {
-  const long long b = block_bytes(n_edges, n_entries, n_rows) + 4LL * blocks;
-  return (b + 15) / 16 * 16;
-}
-
-// Inputs as in Inputs above (device pointers); out: (3 B + N,) float64,
-// latency (B), hop energy (B), congested (B; 1.0 or 0.0), deltas (N).
-// rows_per_block and smem_bytes from price_rows_plan; scratch (device,
-// price_rows_scratch_bytes, 16-byte aligned) may be null when the plan has
-// no global block.
-// Launches on `stream` and returns cudaGetLastError().
-int price_rows_launch(const void* f, const void* mem_stall,
-                      const void* row_ptr, const void* flags,
-                      const void* in_ptr, const void* in_idx, int n_rows,
-                      int n_edges, int n_entries, int rows_per_block,
-                      int smem_bytes, void* scratch, void* out,
-                      void* stream) {
-  if (n_rows <= 0 || n_edges <= 0 || n_entries < 0 || rows_per_block < 1 ||
-      rows_per_block > kMaxRows || smem_bytes < 0 ||
-      smem_bytes > kSmemLimit) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Inputs in{static_cast<const double*>(f),
-                  static_cast<const double*>(mem_stall),
-                  static_cast<const int*>(row_ptr),
-                  static_cast<const uint8_t*>(flags),
-                  static_cast<const int*>(in_ptr),
-                  static_cast<const int*>(in_idx), n_rows, n_edges,
-                  n_entries};
-  const int blocks = (n_rows + rows_per_block - 1) / rows_per_block;
-  price_rows_kernel<<<blocks, kThreads, smem_bytes,
-                      static_cast<cudaStream_t>(stream)>>>(
-      in, rows_per_block, smem_bytes, static_cast<char*>(scratch),
-      static_cast<double*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The planner's round trip for one call, all of it on `stream`:
 // `stage` is the host copy (pinned) of the ragged inputs, the six parts at
 // byte offsets `at[0..5]` (floats, mem_stall, row_ptr, flags, in_ptr,
@@ -431,18 +429,17 @@ int price_rows_round_trip(const void* stage, long long stage_bytes,
   if (err != 0) return err;
   const long long out_bytes = 8LL * (3LL * n_rows + n_edges);
   const long long scratch_at = (out_at + out_bytes + 15) / 16 * 16;
-  *need = plan[3] ? scratch_at + price_rows_scratch_bytes(n_rows, n_edges,
-                                                          n_entries, plan[2])
+  *need = plan[3] ? scratch_at + scratch_bytes(n_rows, n_edges, n_entries,
+                                             plan[2])
                   : out_at + out_bytes;
   if (dev_bytes < *need) return static_cast<int>(cudaErrorMemoryAllocation);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   char* d = static_cast<char*>(dev);
   err = cudaMemcpyAsync(d, stage, stage_bytes, cudaMemcpyHostToDevice, s);
   if (err != 0) return err;
-  err = price_rows_launch(d + at[0], d + at[1], d + at[2], d + at[3],
-                          d + at[4], d + at[5], n_rows, n_edges, n_entries,
-                          plan[0], plan[1], plan[3] ? d + scratch_at : nullptr,
-                          d + out_at, stream);
+  err = launch(d + at[0], d + at[1], d + at[2], d + at[3], d + at[4],
+               d + at[5], n_rows, n_edges, n_entries, plan[0], plan[1],
+               plan[3] ? d + scratch_at : nullptr, d + out_at, stream);
   if (err != 0) return err;
   err = cudaMemcpyAsync(host_out, d + out_at, out_bytes,
                         cudaMemcpyDeviceToHost, s);

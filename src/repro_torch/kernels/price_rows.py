@@ -5,9 +5,9 @@ CUDA kernel in ``csrc/price_rows.cu``: the Fig. 3 interval recurrence of
 ``repro.core.pipeline_model_jax._make_price_fn`` per candidate, one
 thread a row, built without fused multiply-adds so that its float64
 results are the host's to the last bit.  Rows of any edge count share
-one launch.  On CPU tensors the wrapper computes the plain version
-``price_rows_plain``; on CUDA tensors it launches the kernel or raises.
-``price_rows.launches`` counts launches.
+one launch.  With ``device="cpu"`` the wrapper computes the plain
+version ``price_rows_plain``; with ``cuda`` it launches the kernel or
+raises.  ``price_rows.launches`` counts launches.
 
 The ragged layout (B rows, N edges in all, M incoming entries):
 
@@ -23,7 +23,8 @@ The ragged layout (B rows, N edges in all, M incoming entries):
 and the output, packed so that it comes back in one copy:
 ``(3 B + N,)`` float64, latency (B), hop energy (B), congested (B; 1.0
 or 0.0) and the deltas (N).  ``layout`` places the inputs in one staging
-tensor; ``price_staged`` is the planner's call on it.
+tensor, and ``price_rows`` takes that tensor: on the card one C call
+copies it up, launches and copies the output back.
 
 ``price_rows_ref`` is the reference's ``one`` line by line, batched over
 candidates on padded (B, E) tensors; the plain version pads each edge
@@ -140,128 +141,6 @@ def price_rows_plain(floats: torch.Tensor, mem_stall: torch.Tensor,
     return out
 
 
-class Plan(NamedTuple):
-    """How a launch splits its rows over blocks (``price_rows_plan`` in
-    the CUDA source): rows a block, dynamic shared memory a block, the
-    blocks, and the blocks whose rows stage in global scratch."""
-    rows_per_block: int
-    smem_bytes: int
-    blocks: int
-    global_blocks: int
-
-    @property
-    def regime(self) -> str:
-        if self.global_blocks == 0:
-            return "shared"
-        return "global" if self.global_blocks == self.blocks else "mixed"
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = build.load("price_rows")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.price_rows_plan.argtypes = [p, p, i, p]
-    lib.price_rows_plan.restype = i
-    lib.price_rows_scratch_bytes.argtypes = [i, i, i, i]
-    lib.price_rows_scratch_bytes.restype = ctypes.c_longlong
-    lib.price_rows_launch.argtypes = [p] * 6 + [i] * 5 + [p, p, p]
-    lib.price_rows_launch.restype = i
-    ll = ctypes.c_longlong
-    lib.price_rows_round_trip.argtypes = [p, ll, p, i, i, i, p, ll, ll, p,
-                                          p, p, p]
-    lib.price_rows_round_trip.restype = i
-    lib.price_rows_error_string.argtypes = [i]
-    lib.price_rows_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _plan(row_ptr: int, in_ptr: int, B: int) -> Plan:
-    """The block plan from the host addresses of row_ptr and in_ptr."""
-    lib = _library()
-    plan = (ctypes.c_int * 4)()
-    err = lib.price_rows_plan(row_ptr, in_ptr, B, plan)
-    if err != 0:
-        raise RuntimeError("price_rows plan failed: "
-                           + lib.price_rows_error_string(err).decode())
-    return Plan(*plan)
-
-
-def block_plan(row_ptr: torch.Tensor, in_ptr: torch.Tensor) -> Plan:
-    """The block plan of a call (the card's library computes it on the
-    host, so this needs the built kernel)."""
-    rp = row_ptr.to("cpu", torch.int32).contiguous()
-    ip = in_ptr.to("cpu", torch.int32).contiguous()
-    return _plan(rp.data_ptr(), ip.data_ptr(), rp.numel() - 1)
-
-
-def price_rows(floats: torch.Tensor, mem_stall: torch.Tensor,
-               row_ptr: torch.Tensor, flags: torch.Tensor,
-               in_ptr: torch.Tensor, in_idx: torch.Tensor,
-               plan: Plan = None) -> torch.Tensor:
-    """The ragged inputs (module docstring) -> (3 B + N,) float64.
-
-    On the card the block plan is read from row_ptr and in_ptr, which
-    copies them to the host, unless the caller passes ``plan``."""
-    B = mem_stall.shape[0]
-    N = floats.shape[1] if floats.ndim == 2 else -1
-    M = in_idx.shape[0]
-    tensors = (floats, mem_stall, row_ptr, flags, in_ptr, in_idx)
-    if (floats.shape != (7, N) or mem_stall.ndim != 1
-            or row_ptr.shape != (B + 1,) or flags.shape != (N,)
-            or in_ptr.shape != (N + 1,) or in_idx.ndim != 1):
-        raise ValueError(
-            "price_rows takes floats (7, N), mem_stall (B,), row_ptr "
-            "(B + 1,), flags (N,), in_ptr (N + 1,), in_idx (M,); got "
-            f"{[tuple(t.shape) for t in tensors]}")
-    dev = floats.device
-    if any(t.device != dev for t in tensors):
-        raise ValueError("price_rows inputs must lie on one device")
-    if (floats.dtype != torch.float64 or mem_stall.dtype != torch.float64
-            or flags.dtype != torch.uint8
-            or any(t.dtype != torch.int32
-                   for t in (row_ptr, in_ptr, in_idx))):
-        raise TypeError("price_rows takes float64 floats and mem_stall, "
-                        "uint8 flags, int32 row_ptr, in_ptr and in_idx")
-    if dev.type == "cpu":
-        return price_rows_plain(*tensors)
-    if dev.type != "cuda":
-        raise ValueError(f"price_rows runs on cuda or cpu, not {dev}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("price_rows takes contiguous inputs")
-    if B == 0:
-        return floats.new_empty(3 * B + N)
-    if plan is None:
-        plan = block_plan(row_ptr, in_ptr)
-    return _launch(dev, tuple(t.data_ptr() for t in tensors), B, N, M, plan)
-
-
-price_rows.launches = 0
-
-
-def _launch(dev: torch.device, addrs: Tuple[int, ...], B: int, N: int,
-            M: int, plan: Plan) -> torch.Tensor:
-    """One launch on ``dev`` over the ragged inputs at ``addrs`` (floats,
-    mem_stall, row_ptr, flags, in_ptr, in_idx); counts it.  The output
-    and, where the plan has global blocks, the scratch after it are one
-    allocation."""
-    lib = _library()
-    n_out = 3 * B + N
-    at = n_out + n_out % 2                  # the scratch 16-byte aligned
-    scratch = (lib.price_rows_scratch_bytes(B, N, M, plan.blocks) // 8
-               if plan.global_blocks else 0)
-    work = torch.empty(at + scratch, dtype=torch.float64, device=dev)
-    p = work.data_ptr()
-    with build.on_device(dev):
-        err = lib.price_rows_launch(
-            *addrs, B, N, M, plan.rows_per_block, plan.smem_bytes,
-            p + 8 * at if scratch else None, p, build.launch_stream(dev))
-    if err != 0:
-        raise RuntimeError("price_rows launch failed: "
-                           + lib.price_rows_error_string(err).decode())
-    price_rows.launches += 1
-    return work[:n_out]
-
-
 # ---------------------------------------------------------------------------
 # the staging tensor
 # ---------------------------------------------------------------------------
@@ -307,23 +186,83 @@ def unstage(stage: torch.Tensor, lay: Layout) -> Tuple[torch.Tensor, ...]:
             part(lay.in_idx, lay.M, torch.int32, 4))
 
 
+class Plan(NamedTuple):
+    """How a launch splits its rows over blocks (``price_rows_plan`` in
+    the CUDA source): rows a block, dynamic shared memory a block, the
+    blocks, and the blocks whose rows stage in global scratch."""
+    rows_per_block: int
+    smem_bytes: int
+    blocks: int
+    global_blocks: int
+
+    @property
+    def regime(self) -> str:
+        if self.global_blocks == 0:
+            return "shared"
+        return "global" if self.global_blocks == self.blocks else "mixed"
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = build.load("price_rows")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.price_rows_plan.argtypes = [p, p, i, p]
+    lib.price_rows_plan.restype = i
+    lib.price_rows_round_trip.argtypes = [p, ll, p, i, i, i, p, ll, ll, p,
+                                          p, p, p]
+    lib.price_rows_round_trip.restype = i
+    lib.price_rows_error_string.argtypes = [i]
+    lib.price_rows_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(stage: torch.Tensor, lay: Layout) -> None:
+    if (stage.device.type != "cpu" or stage.dtype != torch.uint8
+            or not stage.is_contiguous() or stage.numel() < lay.nbytes):
+        raise ValueError(
+            "price_rows takes a contiguous uint8 host staging tensor of at "
+            f"least {lay.nbytes} bytes, got {stage.dtype} "
+            f"{tuple(stage.shape)} on {stage.device}")
+    if lay.B < 1:
+        raise ValueError("price_rows takes at least one row")
+
+
+def block_plan(stage: torch.Tensor, lay: Layout) -> Plan:
+    """The block plan the card's launch takes for the rows staged in
+    ``stage``: ``price_rows_plan`` of the built library on the staged
+    row_ptr and in_ptr (host code, no launch)."""
+    _check(stage, lay)
+    lib = _library()
+    plan = (ctypes.c_int * 4)()
+    host = stage.data_ptr()
+    err = lib.price_rows_plan(host + lay.row_ptr, host + lay.in_ptr, lay.B,
+                              plan)
+    if err != 0:
+        raise RuntimeError("price_rows plan failed: "
+                           + lib.price_rows_error_string(err).decode())
+    return Plan(*plan)
+
+
 #: cudaErrorMemoryAllocation: the round trip's device buffer is too small
 _OUT_OF_ROOM = 2
 
 
-def price_staged(stage: torch.Tensor, lay: Layout, device: torch.device
-                 ) -> np.ndarray:
-    """Price the rows staged in ``stage`` (a host uint8 tensor, pinned
-    for the card) on ``device`` and return the packed output on the host.
+def price_rows(stage: torch.Tensor, lay: Layout, device: torch.device
+               ) -> np.ndarray:
+    """Price the rows staged in ``stage`` (a host uint8 tensor laid out
+    by ``lay``, pinned for the card) on ``device`` -> the packed
+    (3 B + N,) float64 output on the host.
 
     On ``cuda``: one call into the library (``price_rows_round_trip``)
     takes the block plan from the staged host copy, copies the inputs to
     the card once, launches once on addresses inside that copy, copies
     the output back into the staging tensor's room for it, and waits for
-    the stream.  On ``cpu``: the plain version on views of the same
-    tensor.  At least one row."""
+    the stream; a failed build, copy or launch raises.  On ``cpu``: the
+    plain version on views of the same tensor, no launch.  Any other
+    device raises."""
+    _check(stage, lay)
     if device.type == "cpu":
-        return price_rows(*unstage(stage, lay)).numpy()
+        return price_rows_plain(*unstage(stage, lay)).numpy()
     if device.type != "cuda":
         raise ValueError(f"price_rows runs on cuda or cpu, not {device}")
     lib = _library()
@@ -350,3 +289,6 @@ def price_staged(stage: torch.Tensor, lay: Layout, device: torch.device
     price_rows.launches += 1
     return stage.numpy()[lay.out:lay.out + 8 * n_out].view(
         np.float64).copy()
+
+
+price_rows.launches = 0

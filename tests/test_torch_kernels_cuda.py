@@ -195,13 +195,12 @@ def test_maxplus_kernel_takes_unaligned_rows():
                                rtol=1e-12, atol=0.0)
 
 
-def _ragged_inputs(edge_counts, seed=0):
+def _staged_rows(edge_counts, seed=0):
     """Random candidates of the given edge counts (``synthetic_rows``:
-    up to 4 incoming edges an edge) staged as one call, on the card."""
+    up to 4 incoming edges an edge) staged as one call, pinned."""
     from repro_torch.core import pipeline_model_torch as pmt
-    from repro_torch.kernels.price_rows import unstage
-    stage, lay = pmt.stage_rows(pmt.synthetic_rows(edge_counts, seed=seed))
-    return unstage(stage.cuda(), lay)
+    from repro_torch.testing import synthetic_rows
+    return pmt.stage_rows(synthetic_rows(edge_counts, seed=seed), pin=True)
 
 
 #: (label, edge counts, regime): a planner call's mix, all 1539 rows of a
@@ -219,24 +218,27 @@ _PRICE_CALLS = [
 @pytest.mark.parametrize("label,edges,regime", _PRICE_CALLS,
                          ids=[c[0] for c in _PRICE_CALLS])
 def test_price_rows_kernel_matches_plain(label, edges, regime):
-    """Every row of a ragged call bit-equal to the plain version, two
-    calls bit-equal, one launch a call, the block plan's regime."""
+    """Every row of a ragged call, priced through the planner's round
+    trip, bit-equal to the plain version on the card, two calls
+    bit-equal, one launch a call, the block plan's regime."""
+    import numpy as np
+
     from repro_torch.kernels.price_rows import (block_plan, price_rows,
-                                                price_rows_plain)
+                                                price_rows_plain, unstage)
     _need_card()
-    args = _ragged_inputs(edges, seed=len(edges))
-    plan = block_plan(args[2], args[4])
-    assert plan.regime == regime
+    stage, lay = _staged_rows(edges, seed=len(edges))
+    assert block_plan(stage, lay).regime == regime
+    dev = torch.device("cuda")
     before = price_rows.launches
-    got = price_rows(*args)
-    again = price_rows(*args, plan=plan)
-    torch.cuda.synchronize()
+    got = price_rows(stage, lay, dev)
+    assert price_rows.launches == before + 1
+    again = price_rows(stage, lay, dev)
     assert price_rows.launches == before + 2
     # built without FMA, in the host's order: bit-equal to the plain path
-    want = price_rows_plain(*args)
+    want = price_rows_plain(*unstage(stage.to(dev), lay)).cpu().numpy()
     assert got.dtype == want.dtype and got.shape == want.shape
-    assert torch.equal(got, want)
-    assert torch.equal(got, again)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, again)
 
 
 def test_planner_prices_and_simulates_on_the_card():

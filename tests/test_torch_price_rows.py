@@ -5,15 +5,13 @@ edge count in one staging tensor, priced by the plain version of
 
 Rows come from real planning (``keyword_spotting`` and
 ``gaze_estimation`` on ``PAPER_HW``/AMP, recorded at the torch engine's
-``price_rows``) and from ``synthetic_rows`` (random slot DAGs, up to 4
-incoming edges an edge).  Every comparison is bitwise: the plain version
+``price_rows``) and from ``repro_torch.testing.synthetic_rows`` (random
+slot DAGs, up to 4 incoming edges an edge).  Every comparison is bitwise: the plain version
 runs the host's float64 operations in the host's order.  The JAX
 function runs op by op (``jax.disable_jit``): jitted, XLA fuses its last
 multiply-add and the latency of some rows moves by one ulp (the deltas
 do not), which ``tests/test_torch_engine_parity.py`` holds within the
-reference's 1e-6.  Rows at E = 33 and 70 (JAX buckets of 64 and 128
-edges, slow to trace on a CPU) are held against ``price_rows_ref``
-only.
+reference's 1e-6.
 """
 import dataclasses
 import importlib
@@ -28,6 +26,7 @@ from repro_torch.core import (PAPER_HW, Planner, PlanRequest, Topology,
                               span_cache_clear)
 from repro_torch.core import pipeline_model_torch as pmt
 from repro_torch.kernels import price_rows as kpr
+from repro_torch.testing import synthetic_rows
 
 rpm_jax = importlib.import_module("repro.core.pipeline_model_jax")
 
@@ -63,7 +62,7 @@ def _priced(rows):
     """(latency, congested, hop energy, deltas) per row by the ragged
     plain version on one staging tensor."""
     stage, lay = pmt.stage_rows(rows)
-    out = kpr.price_staged(stage, lay, torch.device("cpu"))
+    out = kpr.price_rows(stage, lay, torch.device("cpu"))
     B, at, res = lay.B, 3 * lay.B, []
     for b, r in enumerate(rows):
         res.append((out[b], out[2 * B + b] != 0.0, out[B + b],
@@ -74,7 +73,7 @@ def _priced(rows):
 
 def _padded(rows, e_pad):
     """``price_rows_ref``'s padded tensors for rows of at most ``e_pad``
-    edges, built from ``PriceRow.inc`` (not the incoming lists)."""
+    edges, the incidence from ``PriceRow.inc`` (not from the staging)."""
     B = len(rows)
     f = np.zeros((7, B, e_pad))
     f[2] = 1.0
@@ -130,21 +129,32 @@ def test_ragged_plain_matches_padded_ref(planned_rows, padding):
     """Real and random rows in one call, against ``price_rows_ref`` on
     the reference's buckets and on every row padded to 128 edges: padded
     edges change no bit, so dropping them is exact."""
-    rows = planned_rows + pmt.synthetic_rows(RANDOM_EDGES * 3, seed=7)
+    rows = planned_rows + synthetic_rows(RANDOM_EDGES * 3, seed=7)
     _assert_bit_equal(_priced(rows),
                       _ref(rows, 128 if padding == "wide" else None))
 
 
 def test_ragged_plain_matches_jax(planned_rows):
-    rows = planned_rows + pmt.synthetic_rows(
+    rows = planned_rows + synthetic_rows(
         [e for e in RANDOM_EDGES if e <= 32] * 2, seed=11)
+    _assert_bit_equal(_priced(rows), _jax(rows))
+
+
+@pytest.mark.slow
+def test_ragged_plain_matches_jax_past_32_edges(planned_rows):
+    """Random rows of every size in ``RANDOM_EDGES`` mixed in one call
+    with real rows, E = 33 and 70 among them: the reference's 64- and
+    128-edge buckets, which its op-by-op run steps through one padded
+    edge at a time (~22 s on a CPU, against ~11 s for the buckets up to
+    32 edges above)."""
+    rows = planned_rows[:20] + synthetic_rows(RANDOM_EDGES, seed=13)
     _assert_bit_equal(_priced(rows), _jax(rows))
 
 
 def test_planner_call_prices_as_its_host_rows(planned_rows):
     """``pipeline_model_torch.price_rows`` assembles the staged output
     into each row's ``SegmentCost``."""
-    rows = planned_rows[:40] + pmt.synthetic_rows([5, 31, 70], seed=2)
+    rows = planned_rows[:40] + synthetic_rows([5, 31, 70], seed=2)
     got = [(c.latency_cycles, c.congested, c.noc_hop_energy,
             c.interval_delays) for c in pmt.price_rows(rows, device="cpu")]
     _assert_bit_equal(got, _priced(rows))
@@ -157,7 +167,7 @@ def test_planner_call_prices_as_its_host_rows(planned_rows):
 def test_incoming_list_order_changes_no_bit():
     """fmax is exact and commutative: shuffling each incoming list (the
     kernel's input order) leaves every result as it was."""
-    rows = pmt.synthetic_rows(RANDOM_EDGES * 2, seed=3)
+    rows = synthetic_rows(RANDOM_EDGES * 2, seed=3)
     rng = np.random.default_rng(0)
     shuffled = []
     for r in rows:
@@ -172,7 +182,7 @@ def test_incoming_list_order_changes_no_bit():
 
 
 def test_stage_round_trips(planned_rows):
-    rows = planned_rows[:25] + pmt.synthetic_rows([1, 33, 4], seed=5)
+    rows = planned_rows[:25] + synthetic_rows([1, 33, 4], seed=5)
     stage, lay = pmt.stage_rows(rows)
     floats, stall, row_ptr, flags, in_ptr, in_idx = kpr.unstage(stage, lay)
     assert (lay.B, lay.N, lay.M) == (
@@ -211,29 +221,37 @@ def test_depth1_call_makes_no_launch_and_no_copy(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a depth-1 call staged or priced rows")
 
+    wrapper = kpr.price_rows
     monkeypatch.setattr(pmt, "stage_rows", refuse)
-    monkeypatch.setattr(kpr, "price_staged", refuse)
-    before = kpr.price_rows.launches
+    monkeypatch.setattr(kpr, "price_rows", refuse)
+    before = wrapper.launches
     costs = pmt.price_rows(rows)
     assert [c is r.host_cost for c, r in zip(costs, rows)] == [True] * 3
-    assert kpr.price_rows.launches == before
+    assert wrapper.launches == before
 
 
 def test_zero_rows():
+    """A planner call with no rows returns none; the plain version takes
+    zero rows; the staged wrapper, which only such calls never reach,
+    refuses them."""
     assert pmt.price_rows([]) == []
     empty_i = torch.zeros(0, dtype=torch.int32)
-    out = kpr.price_rows(torch.zeros(7, 0, dtype=torch.float64),
+    out = kpr.price_rows_plain(torch.zeros(7, 0, dtype=torch.float64),
                          torch.zeros(0, dtype=torch.float64),
                          torch.zeros(1, dtype=torch.int32),
                          torch.zeros(0, dtype=torch.uint8),
                          torch.zeros(1, dtype=torch.int32), empty_i)
     assert out.shape == (0,) and out.dtype == torch.float64
+    lay = kpr.layout(0, 0, 0)
+    with pytest.raises(ValueError, match="at least one row"):
+        kpr.price_rows(torch.zeros(lay.nbytes, dtype=torch.uint8), lay,
+                       torch.device("cpu"))
 
 
 def test_device_neither_cuda_nor_cpu_raises():
-    rows = pmt.synthetic_rows([3], seed=1)
+    rows = synthetic_rows([3], seed=1)
     with pytest.raises(ValueError, match="cuda or cpu"):
         pmt.price_rows(rows, device="meta")
     stage, lay = pmt.stage_rows(rows)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        kpr.price_rows(*(t.to("meta") for t in kpr.unstage(stage, lay)))
+        kpr.price_rows(stage, lay, torch.device("meta"))
