@@ -19,7 +19,9 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    for ``fused_mlp``, the launch- or latency-bound kernels and flash
    attention, the kernel's device time by the profiler; ``fused_mlp``
    at qwen2.5-3b and gemma3-4b widths (decode, prefill, ragged T, ragged
-   D and F) and flash attention at the model paths' shapes, in bf16
+   D and F) and at D = 5120 (phi3-medium-14b's and qwen1.5-32b's decode,
+   qwen1.5-32b's (1, 512) prefill in the rows regime), with each row's
+   regime, and flash attention at the model paths' shapes, in bf16
    (tensor cores, also held to a limit in bf16 ulps) and float32, each
    also called twice and required to give the same bits; just before
    and after each flash timing window, the card's SM clock, power and
@@ -36,13 +38,18 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    repeatability, float64 and step-kernel columns; ``maxplus_chunked``
    at the simulator's row shapes and past one 1024-step tile;
 4. models, one on the card at a time, each at full width with random
-   bf16 weights from a seed: qwen2.5-3b, rwkv6-1.6b, recurrentgemma-2b
-   and gemma3-4b each answer 6 requests through ``ServeEngine`` with the
-   kernels on; the launch counts of each run must show every kernel of
-   its path once per layer that runs it and tick (fused_mlp, wkv6,
-   rglru_chunked) and no other kernel (flash attention runs only without
-   a cache, so never in decode); one decode step is then compared with
-   the plain path from the same cache; the two recurrent archs also run
+   bf16 weights from a seed, each built by ``init_model`` on a card that
+   holds no other, its peak memory held to the weights + 2 GB:
+   qwen2.5-3b, rwkv6-1.6b, recurrentgemma-2b, gemma3-4b,
+   phi3-medium-14b, qwen1.5-32b, granite-moe-1b-a400m and
+   moonshot-v1-16b-a3b each answer 6 requests through ``ServeEngine``
+   with the kernels on; the launch counts of each run must show every
+   kernel of its path once per layer that runs it and tick (fused_mlp,
+   wkv6, rglru_chunked; none for the MoE archs, whose experts are plain
+   products) and no other kernel (flash attention runs only without a
+   cache, so never in decode); one decode step is then compared with
+   the plain path from the same cache, and taken again from another
+   copy of the cache for the same bits; the two recurrent archs also run
    ``forward`` on a (2, 512) prompt, each layer's output with the
    kernels is held against the plain path's from the same input, and the
    logits against the plain path with its recurrence in float64; their
@@ -56,6 +63,11 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    the reference's chunked-attention length, with one flash launch per
    layer, each layer held against the plain path (``_sdpa_chunked``) in
    float32 and the bf16 logits against the plain path's;
+   phi3-medium-14b, qwen1.5-32b, granite-moe-1b-a400m and
+   moonshot-v1-16b-a3b run ``forward`` on a (1, 512) prompt
+   (``forward_slice``): bf16 logits against the plain path on the
+   positions whose MoE routing agrees in every layer, the routing flips
+   counted, and each layer in float32, one layer's twin at a time;
 5. plan: the 8 XR-bench tasks on ``PAPER_HW``/AMP through
    ``get_planner().plan(PlanRequest(g, engine=...))``, the torch engine
    on ``cuda`` and the numpy engine in turns (three rounds, the order
@@ -75,10 +87,11 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    through the CUDA ``maxplus_chunked``, against ``engine="numpy"``,
    and one scan's call time through the staged copy beside the same
    scan through two pageable copies;
-7. small reference: the four smoke configs in float32 on the card,
+7. small reference: the eight smoke configs in float32 on the card,
    decode logits (plain attention) against prefill logits (the flash
    kernel) at every position (the hybrid past its local attention's
-   ring-buffer wrap, gemma3-4b past its local window).
+   ring-buffer wrap, gemma3-4b past its local window, the MoE configs
+   with capacity for every token).
 
 Any failure raises and exits non-zero.  The second-last line is the JSON
 kernel table; the last line is the device record.  The full results go
@@ -119,14 +132,27 @@ LOGIT_TOL = 5e-2
 LAYER_TOL = 1e-4
 #: smoke configs in float32: decode vs prefill differ in summation order
 SMALL_TOL = 1e-4
+#: ``init_model`` may hold this much above the weights at its peak (one
+#: layer's float32 draws: qwen1.5-32b's largest is 0.56 GB)
+INIT_PEAK_OVER_BYTES = 2e9
+#: what may stay allocated on the card when the next model is built
+CLEAN_CARD_BYTES = 1e9
 
 #: (label, T, D, F): qwen2.5-3b width (the serve path's 4 slots, a
-#: 256-token prompt, a ragged T) and gemma3-4b width (4 slots, and the
-#: (1, 8192) forward's prefill, which float32 checks without timing)
+#: 256-token prompt, a ragged T), gemma3-4b width (4 slots, and the
+#: (1, 8192) forward's prefill) and D = 5120: phi3-medium-14b's and
+#: qwen1.5-32b's 4 slots, and qwen1.5-32b's (1, 512) forward, which the
+#: rows regime takes (no cluster tile holds D / 8 = 640 columns)
 FUSED_MLP_SHAPES = [("decode", 4, 2048, 11008), ("prefill", 256, 2048, 11008),
                     ("ragged", 5, 2048, 11008),
                     ("decode-gemma", 4, 2560, 10240),
-                    ("prefill-gemma", 8192, 2560, 10240)]
+                    ("prefill-gemma", 8192, 2560, 10240),
+                    ("decode-phi3", 4, 5120, 17920),
+                    ("decode-qwen32", 4, 5120, 27392),
+                    ("prefill-qwen32", 512, 5120, 27392)]
+#: prefill rows that float32 checks without timing
+FUSED_MLP_UNTIMED = {("prefill-gemma", "float32"),
+                     ("prefill-qwen32", "float32")}
 
 #: the simulator scans one row of T <= 512 bursts (DEFAULT_MAX_BURSTS);
 #: a row past one tile of 1024 steps carries between tiles; (label, B, T)
@@ -178,15 +204,21 @@ FLASH_TOL = {"bfloat16": 3e-2, "float32": 3e-4}
 FLASH_ULP_LIMIT = 4.0
 #: (label, B, S, T, H, Hkv, hd, causal, window): gemma3-4b's forward at
 #: (1, 8192) and (2, 2048), local (window 1024) and global; a ragged S;
-#: recurrentgemma-2b's forward (10 heads, 1 KV head, window 2048); and
-#: whisper's cross-attention shape (not causal, T != S)
+#: recurrentgemma-2b's forward (10 heads, 1 KV head, window 2048);
+#: whisper's cross-attention shape (not causal, T != S); and the (1, 512)
+#: forwards of qwen1.5-32b (MHA 40/40), phi3-medium-14b (GQA 40/10),
+#: granite-moe-1b-a400m (16/8 at hd 64) and moonshot-v1-16b-a3b (16/16)
 FLASH_SHAPES = [("local-8192", 1, 8192, 8192, 8, 4, 256, True, 1024),
                 ("global-8192", 1, 8192, 8192, 8, 4, 256, True, 0),
                 ("local-2x2048", 2, 2048, 2048, 8, 4, 256, True, 1024),
                 ("global-2x2048", 2, 2048, 2048, 8, 4, 256, True, 0),
                 ("ragged-777", 1, 777, 777, 8, 4, 256, True, 0),
                 ("hybrid-2x512", 2, 512, 512, 10, 1, 256, True, 2048),
-                ("cross-128x1500", 1, 128, 1500, 16, 16, 64, False, 0)]
+                ("cross-128x1500", 1, 128, 1500, 16, 16, 64, False, 0),
+                ("qwen32-1x512", 1, 512, 512, 40, 40, 128, True, 0),
+                ("phi3-1x512", 1, 512, 512, 40, 10, 128, True, 0),
+                ("granite-1x512", 1, 512, 512, 16, 8, 64, True, 0),
+                ("moonshot-1x512", 1, 512, 512, 16, 16, 128, True, 0)]
 
 
 def fail(msg: str) -> None:
@@ -286,7 +318,8 @@ def check_fused_mlp(label: str, T: int, D: int, F: int, dtype_name: str,
     """One shape: the kernel against its plain version, a second call
     bitwise equal to the first, and (``timed``) its times."""
     import torch
-    from repro_torch.kernels.fused_mlp import fused_mlp, fused_mlp_ref
+    from repro_torch.kernels.fused_mlp import (choose_regime, fused_mlp,
+                                               fused_mlp_ref)
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(T * 7 + D + F)
@@ -312,6 +345,7 @@ def check_fused_mlp(label: str, T: int, D: int, F: int, dtype_name: str,
     tol = KERNEL_TOL[dtype_name]
     ok = bool((diff <= tol + tol * exp.float().abs()).all())
     row = {"shape": label, "T": T, "D": D, "F": F, "dtype": dtype_name,
+           "regime": choose_regime(T, D, dtype == torch.bfloat16)[0],
            "max_abs_err": float(diff.max()), "tol": tol, "ok": ok,
            "repeatable": True}
     if timed:
@@ -359,7 +393,7 @@ def fused_mlp_occupancy():
 
 def phase_kernels():
     rows = [check_fused_mlp(label, T, D, F, dt,
-                            timed=(label, dt) != ("prefill-gemma", "float32"))
+                            timed=(label, dt) not in FUSED_MLP_UNTIMED)
             for label, T, D, F in FUSED_MLP_SHAPES
             for dt in ("bfloat16", "float32")]
     # ragged D and F too (the shapes above are ragged only in T)
@@ -1271,9 +1305,13 @@ def _per_call(cfg, forward: bool = False) -> dict:
     when ``forward``): one per layer that runs it.  The hybrid's MLP
     never takes ``fused_mlp`` (the reference calls ``swiglu`` there
     without the config); flash attention runs on every attention layer
-    of a forward and never in decode."""
+    of a forward and never in decode.  A MoE layer's experts are plain
+    products, as in the reference: its decode runs no hand-written
+    kernel, its forward the flash kernel only."""
     n = {"fused_mlp": 0, "wkv6": 0, "rglru_chunked": 0, "flash_attention": 0}
-    if cfg.arch_kind == "rwkv":
+    if cfg.arch_kind == "moe":
+        n["flash_attention"] = cfg.n_layers if forward else 0
+    elif cfg.arch_kind == "rwkv":
         n["wkv6"] = cfg.n_layers
     elif cfg.arch_kind == "hybrid":
         rec = sum(cfg.block_pattern[l % len(cfg.block_pattern)] == "rglru"
@@ -1311,26 +1349,55 @@ def _float32_twin(params, cfg):
 
 
 def _load_model(arch: str):
+    """``arch``'s published config with the kernels on and its weights
+    from seed 0, built on a card that holds no other model (at most
+    ``CLEAN_CARD_BYTES`` allocated before), with ``init_model``'s peak
+    memory held to the weights plus ``INIT_PEAK_OVER_BYTES``."""
+    import gc
+
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
     cfg = dataclasses.replace(get_config(arch), use_kernels=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held <= CLEAN_CARD_BYTES,
+          f"{arch}: {held / 1e9:.2f} GB still allocated before its init")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    weights = sum(t.numel() * t.element_size() for t in leaves)
+    init = {"seconds": secs, "weights_gb": weights / 1e9,
+            "peak_gb": peak / 1e9, "peak_over_weights_gb":
+            (peak - weights) / 1e9, "limit_over_gb":
+            INIT_PEAK_OVER_BYTES / 1e9, "held_before_gb": held / 1e9}
     print(f"{arch}: {cfg.arch_kind} {cfg.n_layers}L d={cfg.d_model} "
           f"ff={cfg.d_ff} vocab={cfg.vocab}, {n_params / 1e9:.3f} B params "
-          f"in {cfg.dtype}, init {time.perf_counter() - t0:.1f} s")
-    return cfg, params, n_params
+          f"in {cfg.dtype}, init {secs:.1f} s; init peak "
+          f"{peak / 1e9:.3f} GB for {weights / 1e9:.3f} GB of weights "
+          f"(+{(peak - weights) / 1e9:.3f} GB, limit "
+          f"+{INIT_PEAK_OVER_BYTES / 1e9:.1f})")
+    check(peak <= weights + INIT_PEAK_OVER_BYTES,
+          f"{arch}: init_model peaked {(peak - weights) / 1e9:.3f} GB above "
+          f"its weights")
+    return cfg, params, n_params, init
 
 
-def _rel_logit_diff(lk, lp, cfg, chunk: int = 1024):
+def _rel_logit_diff(lk, lp, cfg, chunk: int = 1024, keep=None):
     """max |kernel - plain| / max |plain| over the real vocab rows (the
     padded rows hold -1e30 on both paths), and the argmax agreement, for
-    (B, S, vocab) logits.  Taken over ``chunk`` positions at a time, so
-    no float32 copy of a whole long-prompt tensor is made."""
+    (B, S, vocab) logits; with ``keep``, a (B, S) mask, over the positions
+    it holds only.  Taken over ``chunk`` positions at a time, so no
+    float32 copy of a whole long-prompt tensor is made."""
     import torch
+    if keep is not None:
+        lk, lp = lk[keep][None], lp[keep][None]
     diff = scale = agree = 0.0
     for s0 in range(0, lk.shape[1], chunk):
         a = lk[:, s0:s0 + chunk, :cfg.vocab].float()
@@ -1348,8 +1415,10 @@ def serve_arch(arch: str, params, cfg):
     with the kernels on; every kernel of the path must launch once per
     layer that runs it and tick, and no other; then one decode step is
     compared with the plain path from the same cache: in bf16 for the
-    dense arch, through ``_float32_twin`` (the cache cast to float32) for
-    the recurrent ones."""
+    dense and moe archs, through ``_float32_twin`` (the cache cast to
+    float32) for the recurrent ones.  The kernel path's step is taken a
+    second time from another copy of the cache and must give the same
+    bits."""
     import torch
     from repro_torch.models import decode_step
     from repro_torch.runtime.serve_loop import Request, ServeEngine
@@ -1402,7 +1471,7 @@ def serve_arch(arch: str, params, cfg):
     # one decode step from the same cache state, kernel path vs plain
     feed = torch.tensor([[3 + s] for s in range(engine.B)], device="cuda")
     index = torch.from_numpy(engine.pos.copy()).to("cuda")
-    p_cmp, c_cmp = ((params, cfg) if cfg.arch_kind == "dense"
+    p_cmp, c_cmp = ((params, cfg) if cfg.arch_kind in ("dense", "moe")
                     else _float32_twin(params, cfg))
     logits = {}
     with torch.inference_mode():
@@ -1410,15 +1479,22 @@ def serve_arch(arch: str, params, cfg):
             c = dataclasses.replace(c_cmp, use_kernels=use)
             logits[use], _ = decode_step(
                 p_cmp, c, feed, _copy(engine.cache, c_cmp.dtype), index)
+        again, _ = decode_step(p_cmp, c_cmp, feed,
+                               _copy(engine.cache, c_cmp.dtype), index)
+    repeatable = bool(torch.equal(again, logits[True]))
+    del again
+    check(repeatable, f"{arch}: two decode steps from the same cache gave "
+                      "different bits")
     check(logits[True].shape == (engine.B, 1, cfg.padded_vocab),
           f"{arch}: kernel-path logits {tuple(logits[True].shape)}")
     rel, agree = _rel_logit_diff(logits[True], logits[False], cfg)
     dt_name = str(c_cmp.dtype).removeprefix("torch.")
     serve.update(logit_rel_diff=rel, logit_tol=LOGIT_TOL,
-                 logit_dtype=dt_name, argmax_agreement=agree)
+                 logit_dtype=dt_name, argmax_agreement=agree,
+                 decode_repeatable=repeatable)
     print(f"{arch} decode step ({dt_name}), kernel vs plain path: max "
           f"|diff| / max |logit| = {rel:.3g} (tol {LOGIT_TOL}), argmax "
-          f"agreement {agree:.2f}")
+          f"agreement {agree:.2f}, a second step bit-equal: {repeatable}")
     check(rel <= LOGIT_TOL, f"{arch}: kernel path logits off by {rel:.3g}")
     del p_cmp
     serve["profile"] = profile_ticks(params, cfg, serve["ms_per_tick"])
@@ -1572,13 +1648,13 @@ def forward_arch(arch: str, params, cfg, B: int = 2, S: int = 512):
         xk = xp = xw = p32["embed"][toks]
         layer_rel, apart_rel, witness_rel = [], [], []
         for fk, fp in zip(kernel_fns, plain_fns):
-            nk = fk(xk, positions, None, None)
-            layer_rel.append(float((nk - fp(xk, positions, None, None))
+            nk, _ = fk(xk, positions, None, None)
+            layer_rel.append(float((nk - fp(xk, positions, None, None)[0])
                                    .abs().max() / nk.abs().max()))
-            xk, xp = nk, fp(xp, positions, None, None)
+            xk, xp = nk, fp(xp, positions, None, None)[0]
             apart_rel.append(float((xk - xp).abs().max() / xp.abs().max()))
             with _recurrence_in_float64():
-                xw = fp(xw, positions, None, None)
+                xw, _ = fp(xw, positions, None, None)
             witness_rel.append(float((xw - xp).abs().max()
                                      / xp.abs().max()))
         lk, lp, lw = (_logits(p32, c32, x) for x in (xk, xp, xw))
@@ -1665,8 +1741,8 @@ def forward_long(arch: str, params, cfg, B: int = 1, S: int = 8192):
         x = p32["embed"][toks]
         layer_rel = []
         for fk, fp in zip(kernel_fns, plain_fns):
-            nk = fk(x, positions, None, None)
-            layer_rel.append(float((nk - fp(x, positions, None, None))
+            nk, _ = fk(x, positions, None, None)
+            layer_rel.append(float((nk - fp(x, positions, None, None)[0])
                                    .abs().max() / nk.abs().max()))
             x = nk
         del p32, x, nk
@@ -1730,6 +1806,279 @@ def forward_timed(arch: str, params, cfg, B: int = 1, S: int = 4096):
     return row
 
 
+@contextlib.contextmanager
+def _routings(out: list):
+    """While active, each ``moe_ffn`` call appends its routing to ``out``:
+    (the K experts each (sample, token) picked, in the router's order;
+    which of them were kept at capacity), each (B, S, K), read from
+    ``layers.moe_dispatch``'s inputs and outputs."""
+    from repro_torch.models import layers
+    dispatch = layers.moe_dispatch
+
+    def recording(idx, E, C):
+        tok1, slot = dispatch(idx, E, C)
+        out.append((idx, slot < C))
+        return tok1, slot
+
+    layers.moe_dispatch = recording
+    try:
+        yield
+    finally:
+        layers.moe_dispatch = dispatch
+
+
+@contextlib.contextmanager
+def _pinned_routing(idxs: list):
+    """While active, the i-th ``moe_ffn`` call routes its tokens to the
+    experts ``idxs[i]`` (another run's picks, as ``_routings`` records
+    them), with gates from its own router's probabilities at those
+    experts, renormalised as ``moe_route`` does."""
+    import torch
+    from repro_torch.models import layers
+    route = layers.moe_route
+    calls = iter(idxs)
+
+    def pinned(p, x, cfg):
+        probs, _, _ = route(p, x, cfg)
+        idx = next(calls)
+        gate = torch.gather(probs, -1, idx)
+        return probs, gate / torch.clamp(gate.sum(-1, keepdim=True),
+                                         min=1e-9), idx
+
+    layers.moe_route = pinned
+    try:
+        yield
+    finally:
+        layers.moe_route = route
+
+
+def _routing_diffs(rk, rp):
+    """(B, S) masks of the positions whose routing differs between two
+    runs of one layer: ``flips``, another set of experts picked, and
+    ``drops``, the same experts with another set dropped at capacity."""
+    import torch
+
+    def picks(r):
+        return torch.sort(r[0], dim=-1).values
+
+    def kept(r):
+        return torch.sort(torch.where(r[1], r[0], -1), dim=-1).values
+
+    flips = (picks(rk) != picks(rp)).any(-1)
+    return flips, (kept(rk) != kept(rp)).any(-1) & ~flips
+
+
+@contextlib.contextmanager
+def _attention_plain_version():
+    """While active, attention without a cache under ``use_kernels``
+    calls the flash kernel's plain version (``attention_op_ref``: float32
+    scores and sums, one rounding on the way out) in place of the kernel:
+    a path that differs from ``_sdpa``'s in rounding only and launches no
+    kernel."""
+    from repro_torch.kernels.flash_attention import attention_op_ref
+    from repro_torch.models import layers
+    kernel = layers.attention_op
+    layers.attention_op = attention_op_ref
+    try:
+        yield
+    finally:
+        layers.attention_op = kernel
+
+
+def forward_slice(arch: str, params, cfg, B: int = 1, S: int = 512):
+    """``forward`` at full width on a (B, S) prompt in bf16, timed with
+    the kernels (one flash launch per layer; one ``fused_mlp`` launch per
+    layer for the dense archs, whose D = 5120 takes its rows regime) and
+    on the plain path (``_sdpa``), both bit-equal to a second run.
+
+    A MoE layer picks its experts from the attention's output, and where
+    a token's k-th and (k+1)-th router probabilities nearly tie, the last
+    bits in which flash and ``_sdpa`` differ pick another expert.  Every
+    (layer, token) whose routing differs between the two paths is
+    counted, and the bf16 logits are held (``LOGIT_TOL``) on the
+    positions whose routing agrees in every layer.  A flip changes that
+    token's state in every later layer and, through attention, every
+    later token's, so few positions may agree.  Three more bf16 readings
+    are reported beside it, with every path given the kernel path's
+    expert picks (``_pinned_routing``): kernel vs plain; the witness,
+    the flash kernel's plain version (``_attention_plain_version``, no
+    kernel) vs plain, which shows how far these random-weight nets grow
+    a last-bit difference that owes nothing to the kernel; and kernel vs
+    witness.
+
+    Then in float32, one layer's twin at a time (a float32 copy of a
+    whole model does not fit the card beside it): each layer's output
+    with the kernels against the plain path's from the same input
+    (``LAYER_TOL``), on the tokens whose routing agrees in that layer;
+    and the two paths run apart from the embedding to the logits, held
+    (``LOGIT_TOL``) on the positions whose routing agrees in every
+    layer, flips counted."""
+    import torch
+    from repro_torch.models import forward
+    from repro_torch.models.transformer import (BIG_WINDOW, _layer,
+                                                _logits, _uniform_layer,
+                                                layer_windows)
+    moe = bool(cfg.n_experts)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    secs, logits, aux, routes = {}, {}, {}, {}
+
+    def routing_apart(rk_list, rp_list):
+        """Flips per layer and the (B, S) mask of positions whose routing
+        agrees in every layer, for two runs' ``_routings`` records."""
+        flips = drops = torch.zeros((B, S), dtype=torch.long, device="cuda")
+        per_layer = []
+        for rk, rp in zip(rk_list, rp_list):
+            f, d = _routing_diffs(rk, rp)
+            flips, drops = flips + f, drops + d
+            per_layer.append(int(f.sum()))
+        return (int(flips.sum()), int(drops.sum()), per_layer,
+                (flips + drops) == 0)
+
+    with torch.inference_mode():
+        forward(params, cfg, toks[:, :8])                 # warm-up
+        forward(params, plain_cfg, toks)
+        for use in (True, False):
+            c = cfg if use else plain_cfg
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            logits[use], aux[use] = forward(params, c, toks)
+            torch.cuda.synchronize()
+            secs[use] = time.perf_counter() - t0
+            if use:
+                launches = _counts()
+            routes[use] = []
+            with _routings(routes[use]):
+                again, _ = forward(params, c, toks)
+            check(bool(torch.equal(again, logits[use])),
+                  f"{arch} forward (use_kernels={use}): a second run gave "
+                  "different bits")
+            del again
+        check(logits[True].shape == (B, S, cfg.padded_vocab),
+              f"{arch} forward: logits {tuple(logits[True].shape)}")
+        n_flips, n_drops, layer_flips, agree = routing_apart(routes[True],
+                                                             routes[False])
+        n_agree = int(agree.sum())
+        check(n_agree > 0, f"{arch} forward: every position's routing "
+                           "differs between the paths in some layer")
+        rel_all, _ = _rel_logit_diff(logits[True], logits[False], cfg)
+        rel, agree_argmax = _rel_logit_diff(logits[True], logits[False], cfg,
+                                            keep=agree)
+        pinned = None
+        if moe:
+            picks = [r[0] for r in routes[True]]
+            with _pinned_routing(picks):
+                lpin, _ = forward(params, plain_cfg, toks)
+            with _pinned_routing(picks), _attention_plain_version():
+                lwit, _ = forward(params, cfg, toks)
+            pinned = {"kernel_vs_plain": _rel_logit_diff(logits[True], lpin,
+                                                         cfg)[0],
+                      "witness_vs_plain": _rel_logit_diff(lwit, lpin,
+                                                          cfg)[0],
+                      "kernel_vs_witness": _rel_logit_diff(logits[True],
+                                                           lwit, cfg)[0]}
+            del lpin, lwit
+        del logits
+        breakdown = profile_forward(params, cfg, toks)
+
+        c32 = dataclasses.replace(cfg, dtype=torch.float32)
+        plain32 = dataclasses.replace(c32, use_kernels=False)
+        positions = torch.arange(S, device="cuda")
+        xk = xp = params["embed"][toks].float()
+        layer_rel, layer_diffs, rk_apart, rp_apart = [], [], [], []
+        for l, win in enumerate(layer_windows(cfg)):
+            lp = _copy(_layer(params["layers"], l), torch.float32)
+            w = None if win >= BIG_WINDOW else win
+            rk, rp = [], []
+            with _routings(rk):
+                nk, _ = _uniform_layer(c32, xk, lp, w, positions)
+            with _routings(rp):
+                same, _ = _uniform_layer(plain32, xk, lp, w, positions)
+            with _routings(rp_apart):
+                xp, _ = _uniform_layer(plain32, xp, lp, w, positions)
+            keep = torch.ones((B, S), dtype=torch.bool, device="cuda")
+            if moe:
+                f, d = _routing_diffs(rk[0], rp[0])
+                keep = ~(f | d)
+            layer_diffs.append(int((~keep).sum()))
+            layer_rel.append(float((nk - same)[keep].abs().max()
+                                   / nk.abs().max()))
+            rk_apart += rk
+            xk = nk
+            del lp, same
+        head = {k: params[k].float() for k in ("embed", "ln_f", "unembed")
+                if k in params}
+        lk, lp32 = _logits(head, c32, xk), _logits(head, c32, xp)
+        del head, xk, xp, nk
+        a_flips, a_drops, a_layer_flips, a_agree = routing_apart(rk_apart,
+                                                                 rp_apart)
+        rel32, agree32_argmax = _rel_logit_diff(lk, lp32, cfg, keep=a_agree)
+        rel32_all, _ = _rel_logit_diff(lk, lp32, cfg)
+        del lk, lp32
+    for name, per_call in _per_call(cfg, forward=True).items():
+        check(launches[name] == per_call,
+              f"{arch} forward: {name} launched {launches[name]} times, "
+              f"expected {per_call}")
+    row = {"arch": arch, "B": B, "S": S, "kernel_s": secs[True],
+           "plain_s": secs[False], "launches": launches,
+           "profile": breakdown, "repeatable": True,
+           "aux_kernel": float(aux[True]), "aux_plain": float(aux[False]),
+           "routing_flips": n_flips, "routing_drop_diffs": n_drops,
+           "routing_flips_by_layer": layer_flips,
+           "positions_agreeing": n_agree, "positions": B * S,
+           "logit_rel_diff_bf16": rel, "logit_tol": LOGIT_TOL,
+           "argmax_agreement_bf16": agree_argmax,
+           "logit_rel_diff_bf16_all_positions": rel_all,
+           "bf16_pinned_routing": pinned,
+           "layer_rel_diff_max": max(layer_rel), "layer_tol": LAYER_TOL,
+           "layer_rel_diff": layer_rel,
+           "layer_routing_diffs_float32": sum(layer_diffs),
+           "layer_routing_diffs": layer_diffs,
+           "apart_float32_routing_flips": a_flips,
+           "apart_float32_routing_drop_diffs": a_drops,
+           "apart_float32_flips_by_layer": a_layer_flips,
+           "apart_float32_positions_agreeing": int(a_agree.sum()),
+           "logit_rel_diff_float32": rel32,
+           "argmax_agreement_float32": agree32_argmax,
+           "logit_rel_diff_float32_all_positions": rel32_all}
+    print("forward " + json.dumps({k: v for k, v in row.items()
+                                   if k not in ("layer_rel_diff",
+                                                "layer_routing_diffs",
+                                                "routing_flips_by_layer",
+                                                "apart_float32_flips_by_"
+                                                "layer")}))
+    print(f"{arch} forward ({B}, {S}), bf16, kernel vs plain: {n_flips} "
+          f"(layer, token) routings pick other experts (after layers 1, 6, "
+          f"12, 18, last: {_picks(layer_flips) if moe else []}) and "
+          f"{n_drops} drop others; {n_agree} of {B * S} positions agree in "
+          f"every layer, their logits off by {rel:.3g} (tol {LOGIT_TOL}; "
+          f"all positions {rel_all:.3g}); with the kernel path's expert "
+          f"picks: {pinned}")
+    print(f"{arch} forward ({B}, {S}), float32 one layer's twin at a time: "
+          f"each layer kernel vs plain from the same input, max |diff| / "
+          f"max |x| after layers 1, 6, 12, 18, last: {_picks(layer_rel)}, "
+          f"{sum(layer_diffs)} (layer, token) routings differ; run apart, "
+          f"{a_flips} flips and {a_drops} drop differences, "
+          f"{int(a_agree.sum())} of {B * S} positions agree in every layer, "
+          f"their logits off by {rel32:.3g} (tol {LOGIT_TOL}; all "
+          f"positions {rel32_all:.3g})")
+    check(max(layer_rel) <= LAYER_TOL,
+          f"{arch} forward: a layer's kernel-path output is off by "
+          f"{max(layer_rel):.3g} (tol {LAYER_TOL}): {layer_rel}")
+    check(rel <= LOGIT_TOL,
+          f"{arch} forward: bf16 kernel-path logits off the plain path's by "
+          f"{rel:.3g} (tol {LOGIT_TOL}) on the positions whose routing "
+          "agrees")
+    check(rel32 <= LOGIT_TOL,
+          f"{arch} forward: float32 kernel-path logits off the plain "
+          f"path's by {rel32:.3g} (tol {LOGIT_TOL}) on the positions whose "
+          "routing agrees")
+    return row
+
+
 def profile_forward(params, cfg, toks):
     """Device time of one kernel-path ``forward`` by ``torch.profiler``:
     the sum of kernel durations, each hand-written kernel's part, and
@@ -1752,16 +2101,24 @@ def profile_forward(params, cfg, toks):
     return out
 
 
+#: the archs whose forward ``forward_slice`` runs at (1, 512)
+SLICE_ARCHS = ("phi3-medium-14b", "qwen1.5-32b", "granite-moe-1b-a400m",
+               "moonshot-v1-16b-a3b")
+
+
 def phase_models():
     """Serve and run forward for each arch at full width, one model on
-    the card at a time."""
+    the card at a time (``_load_model`` checks that the card holds no
+    other)."""
     import torch
-    serves, forwards = {}, {}
+    serves, forwards, inits = {}, {}, {}
     for arch in ("qwen2.5-3b", "rwkv6-1.6b", "recurrentgemma-2b",
-                 "gemma3-4b"):
-        cfg, params, _ = _load_model(arch)
+                 "gemma3-4b") + SLICE_ARCHS:
+        cfg, params, _, inits[arch] = _load_model(arch)
         serves[arch] = serve_arch(arch, params, cfg)
-        if cfg.arch_kind != "dense":
+        if arch in SLICE_ARCHS:
+            forwards[arch] = forward_slice(arch, params, cfg)
+        elif cfg.arch_kind != "dense":
             forwards[arch] = forward_arch(arch, params, cfg)
             if cfg.arch_kind == "rwkv":
                 forwards[arch]["long"] = forward_timed(arch, params, cfg)
@@ -1769,7 +2126,7 @@ def phase_models():
             forwards[arch] = forward_long(arch, params, cfg)
         del params
         torch.cuda.empty_cache()
-    return serves, forwards
+    return serves, forwards, inits
 
 
 def phase_small_reference():
@@ -1778,7 +2135,11 @@ def phase_small_reference():
     position.  The hybrid decodes 14 tokens through a 32-token cache
     whose local attention keeps a ring of 8 slots (its window), so the
     ring wraps at t = 8; gemma3-4b's local layers (window 8) mask the
-    oldest keys from t = 8 on."""
+    oldest keys from t = 8 on.  Decode and forward compute the same
+    function only where no token is dropped at capacity: a decode step
+    (S = 1, C = 8 >= K) never drops one, and the MoE configs run with
+    ``capacity_factor = n_experts / top_k``, so that forward's C >= S
+    and it drops none either."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, forward, init_cache, \
@@ -1786,9 +2147,16 @@ def phase_small_reference():
     out = {}
     for arch, n, max_len in (("qwen2.5-3b", 8, 8), ("rwkv6-1.6b", 14, 32),
                              ("recurrentgemma-2b", 14, 32),
-                             ("gemma3-4b", 14, 32)):
+                             ("gemma3-4b", 14, 32),
+                             ("phi3-medium-14b", 8, 8),
+                             ("qwen1.5-32b", 8, 8),
+                             ("granite-moe-1b-a400m", 8, 8),
+                             ("moonshot-v1-16b-a3b", 8, 8)):
         cfg = dataclasses.replace(get_config(arch, smoke=True),
                                   dtype=torch.float32, use_kernels=True)
+        if cfg.n_experts:
+            cfg = dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.top_k)
         params = init_model(cfg, seed=1, device="cuda")
         gen = torch.Generator(device="cuda")
         gen.manual_seed(2)
@@ -1840,7 +2208,7 @@ def main() -> None:
     rows, mp_rows, mp_exact, floor_ms = phase_kernels()
     wkv_rows, rg_rows = phase_recurrence_kernels(floor_ms)
     flash_rows = phase_flash(usage)
-    serves, forwards = phase_models()
+    serves, forwards, inits = phase_models()
     serve = serves["qwen2.5-3b"]
     plan, plans, calls = phase_planner()
     pr_rows, pr_calls = phase_price_rows(calls, floor_ms)
@@ -1868,6 +2236,17 @@ def main() -> None:
         "prefill_library_ms": prefill_row["library_ms"],
         "prefill_bound_ms": prefill_row["bound_ms"],
         "prefill_bound_by": prefill_row["bound_by"]}]
+    # fused_mlp at D = 5120 (phi3-medium-14b, qwen1.5-32b): each shape's
+    # bf16 row, and the launches of those archs' serve runs and forwards
+    kernels[0]["d5120"] = {
+        r["shape"]: {k: r[k] for k in (
+            "T", "D", "F", "regime", "max_abs_err", "ms", "device_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for r in rows if r.get("D") == 5120 and r["dtype"] == "bfloat16"}
+    kernels[0]["d5120_launches"] = {
+        arch: {"serve": serves[arch]["launches"]["fused_mlp"],
+               "forward": forwards[arch]["launches"]["fused_mlp"]}
+        for arch in SLICE_ARCHS[:2]}
     # the planner's kernels: no single PyTorch call computes either
     # function (a max-plus scan; the Fig. 3 recurrence), so library_ms is
     # null; their main rows are the simulator's one-row T = 512 scan and
@@ -1966,7 +2345,16 @@ def main() -> None:
         "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
         "global_ms": gl["ms"], "global_device_ms": gl["device_ms"],
         "global_plain_ms": gl["plain_ms"], "global_bound_ms": gl["bound_ms"],
-        "global_library_ms": gl["library_ms"], "regime": fl["regime"]})
+        "global_library_ms": gl["library_ms"], "regime": fl["regime"],
+        # the (1, 512) forwards of the slice's archs: each shape's bf16
+        # row and that forward's launches
+        "slice_rows": {r["shape"]: {k: r[k] for k in (
+            "H", "Hkv", "hd", "regime", "max_abs_err", "ms", "device_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for r in flash_rows if r["shape"].endswith("-1x512")
+            and r["dtype"] == "bfloat16"},
+        "slice_launches": {arch: forwards[arch]["launches"]["flash_attention"]
+                           for arch in SLICE_ARCHS}})
     record = {"card": smi, "kernels": kernels, "fused_mlp_rows": rows,
               "maxplus_rows": mp_rows, "maxplus_exact": mp_exact,
               "price_rows_rows": pr_rows, "price_rows_calls": pr_calls,
@@ -1974,6 +2362,7 @@ def main() -> None:
               "rglru_rows": rg_rows, "flash_rows": flash_rows,
               "launch_floor_ms": floor_ms,
               "serve": serve, "serves": serves, "forwards": forwards,
+              "inits": inits,
               "plan": plan, "simulate": sim, "small_reference": small,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"

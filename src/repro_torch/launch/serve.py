@@ -3,12 +3,17 @@
     PYTHONPATH=src python -m repro_torch.launch.serve [--arch qwen2.5-3b] \
         [--smoke] [--use-kernels] [--kv-quant] [--requests 6] [--max-new 12]
 
-Serves the published config of ``--arch`` (qwen2.5-3b, gemma3-4b,
-rwkv6-1.6b or recurrentgemma-2b; random weights from seed 0) on the card
-by default; ``--smoke`` takes the reduced sibling, and ``--device cpu``
-runs on the CPU.  ``--use-kernels`` runs every hand-written CUDA kernel
-of the decode path: the fused SwiGLU (dense MLPs, all 34 of gemma3-4b's
-layers), the WKV6 recurrence (rwkv) and the RG-LRU recurrence (hybrid).
+Serves the published config of ``--arch`` (one of the eight archs that
+run: qwen2.5-3b, qwen1.5-32b, phi3-medium-14b, gemma3-4b,
+granite-moe-1b-a400m, moonshot-v1-16b-a3b, rwkv6-1.6b or
+recurrentgemma-2b; random weights from seed 0) on the card by default;
+``--smoke`` takes the reduced sibling, and ``--device cpu`` runs on the
+CPU.  qwen2-vl-2b and whisper-medium fail with ``NotImplementedError``
+before any weight is drawn.  ``--use-kernels`` runs every hand-written
+CUDA kernel of the decode path: the fused SwiGLU (dense MLPs, e.g. all
+34 of gemma3-4b's layers), the WKV6 recurrence (rwkv) and the RG-LRU
+recurrence (hybrid); a MoE arch's experts are plain products, as in the
+reference, so its decode runs no hand-written kernel.
 Decode attention stays plain: the flash-attention kernel serves
 attention without a cache (``forward``), and a decode query sits at a
 per-slot position against a per-slot cache fill, which that kernel,

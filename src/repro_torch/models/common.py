@@ -20,8 +20,8 @@ DeviceLike = Union[str, torch.device, None]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Field-for-field copy of the reference ``ModelConfig``; ``dtype`` is
-    a torch dtype.  The dense (without experts), rwkv and hybrid families
-    run in this port so far; moe, vlm and encdec raise."""
+    a torch dtype.  The dense, moe, rwkv and hybrid families run in this
+    port so far; vlm and encdec raise."""
     name: str
     arch_kind: str                   # dense | moe | hybrid | rwkv | encdec | vlm
     n_layers: int
@@ -112,9 +112,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,
                scale: Optional[float] = None) -> torch.Tensor:
     """Normal init scaled by fan-in (``shape[0]``), drawn in fp32 from
-    ``gen`` on ``gen``'s device and cast to ``dtype``."""
+    ``gen`` on ``gen``'s device and cast to ``dtype``.  The scaling is in
+    place, so a draw holds one fp32 copy beside its result."""
     fan_in = shape[0]
     s = scale if scale is not None else fan_in ** -0.5
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (w * s).to(dtype)
+    return w.mul_(s).to(dtype)

@@ -1,17 +1,20 @@
-"""Attention (GQA / RoPE / sliding window / KV cache) and the SwiGLU MLP.
+"""Attention (GQA / RoPE / sliding window / KV cache), the SwiGLU MLP
+and the top-k mixture of experts.
 
-Port of the dense-path layers of ``repro.models.layers``.  Activations
-follow the reference's (batch, seq, ...) layout and its rounding points.
-Decode takes a KV cache and a scalar or per-slot ``(B,)`` cache index and
-writes the new keys/values into the cache tensors in place (the reference
-returns updated copies; the cache is the caller's to own here).  A
-one-token decode reads its cache as a ring buffer, which is what local
-attention keeps (see ``attention``).
+Port of the dense- and moe-path layers of ``repro.models.layers``.
+Activations follow the reference's (batch, seq, ...) layout and its
+rounding points.  Decode takes a KV cache and a scalar or per-slot
+``(B,)`` cache index and writes the new keys/values into the cache
+tensors in place (the reference returns updated copies; the cache is the
+caller's to own here).  A one-token decode reads its cache as a ring
+buffer, which is what local attention keeps (see ``attention``).
 
 Without a cache (prefill, ``forward``) attention takes, under
 ``cfg.use_kernels``, the hand-written flash-attention kernel
 (``kernels.flash_attention.attention_op``) at any length; otherwise the
 reference's einsum path, chunked from ``CHUNKED_ATTN_THRESHOLD`` on.
+The experts' products are plain ``einsum``s, as in the reference, which
+has no kernel for them.
 """
 from __future__ import annotations
 
@@ -267,3 +270,112 @@ def swiglu(p: Params, x: torch.Tensor,
     u = x @ p["w_up"]
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (top-k, capacity-based)
+# ---------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """The reference's draws, in its order.  ``dense_init`` takes its
+    fan-in from ``shape[0]``, which for the (E, D, F) expert weights is
+    E: they are scaled by E ** -0.5, as in the reference."""
+    E = cfg.n_experts
+    return {
+        "router": dense_init(gen, (cfg.d_model, E), torch.float32),
+        "w_gate": dense_init(gen, (E, cfg.d_model, cfg.d_ff), cfg.dtype),
+        "w_up": dense_init(gen, (E, cfg.d_model, cfg.d_ff), cfg.dtype),
+        "w_down": dense_init(gen, (E, cfg.d_ff, cfg.d_model), cfg.dtype),
+    }
+
+
+def moe_capacity(cfg: ModelConfig, seq: int) -> int:
+    """Slots per expert and sample: the reference's formula, rounded up
+    to a multiple of 8 and at least 8."""
+    c = int(seq * cfg.top_k * cfg.capacity_factor / cfg.n_experts) + 1
+    return max(8, -(-c // 8) * 8)
+
+
+def moe_route(p: Params, x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The float32 router: (probs (B, S, E), gates (B, S, K) renormalised
+    to sum to 1, expert ids (B, S, K)), the top k in descending order."""
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+    gate, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    return probs, gate, idx
+
+
+def moe_dispatch(idx: torch.Tensor, E: int, C: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample capacity dispatch, as the reference's ``route_one``: a
+    stable sort of the sample's flattened (token, k) expert ids puts each
+    expert's entries in token order; an entry's slot is its rank among
+    its expert's entries, and ranks at or past C are dropped.
+
+    Returns ``tok1`` (B, E, C), the token + 1 in each buffer slot (0 where
+    empty), and ``slot`` (B, S, K), each (token, k)'s slot in its
+    expert's buffer, C where it was dropped."""
+    B, S, K = idx.shape
+    se, order = torch.sort(idx.reshape(B, S * K), dim=-1, stable=True)
+    experts = torch.arange(E, dtype=se.dtype, device=se.device)
+    start = torch.searchsorted(se, experts.expand(B, E).contiguous(),
+                               side="left")
+    rank = (torch.arange(S * K, device=se.device)
+            - torch.gather(start, 1, se))
+    valid = rank < C
+    slot_sorted = torch.where(valid, rank, C)
+    # dropped entries all land in column C, which is cut away
+    tok1 = torch.zeros((B, E * (C + 1)), dtype=torch.long, device=se.device)
+    tok1.scatter_(1, se * (C + 1) + slot_sorted,
+                  torch.where(valid, order // K + 1, 0))
+    slot = torch.empty_like(slot_sorted).scatter_(1, order, slot_sorted)
+    return tok1.reshape(B, E, C + 1)[:, :, :C], slot.reshape(B, S, K)
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k capacity-routed MoE (port of the reference's ``moe_ffn``).
+    Returns (output, Switch load-balance loss E sum_e mean_prob_e load_e).
+
+    Each sample fills an (E, C) buffer of token ids (``moe_dispatch``);
+    the three expert products run over every expert's buffer, silu in
+    float32.  The reference scales each slot's output by its gate and
+    scatter-adds the slots back to their tokens in the activation dtype,
+    so a token's contributions arrive in ascending expert order, each add
+    rounded.  The port gathers them through the inverse map instead (each
+    (token, k)'s slot, or dropped), scales each by its gate and sums them
+    in that order, with no atomics: two calls on the same inputs give the
+    same bits on the card too."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = moe_capacity(cfg, S)
+    probs, gate, idx = moe_route(p, x, cfg)
+
+    me = probs.mean(dim=(0, 1))
+    ce = torch.bincount(idx.reshape(-1), minlength=E).float() / (B * S * K)
+    aux = E * torch.sum(me * ce)
+
+    tok1, slot = moe_dispatch(idx, E, C)
+    rows = torch.arange(B, device=x.device)
+    xe = (x[rows[:, None, None], torch.clamp(tok1 - 1, min=0)]
+          * (tok1 > 0)[..., None].to(x.dtype))              # (B, E, C, D)
+    g = torch.einsum("becd,edf->becf", xe, p["w_gate"])
+    u = torch.einsum("becd,edf->becf", xe, p["w_up"])
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    ye = torch.einsum("becf,efd->becd", h, p["w_down"])
+
+    # combine: each token's kept contributions, scaled by their gates (the
+    # reference's product of a slot's output and its gate in the
+    # activation dtype), in ascending expert order
+    idx_s, perm = torch.sort(idx, dim=-1)
+    slot_s = torch.gather(slot, -1, perm)
+    gate_s = torch.gather(gate, -1, perm).to(x.dtype)
+    flat = idx_s * C + torch.clamp(slot_s, max=C - 1)        # (B, S, K)
+    contrib = (ye.reshape(B, E * C, D)[rows[:, None, None], flat]
+               * gate_s[..., None])
+    contrib = torch.where((slot_s < C)[..., None], contrib, 0.0)
+    y = contrib[:, :, 0]
+    for k in range(1, K):
+        y = y + contrib[:, :, k]
+    return y, aux

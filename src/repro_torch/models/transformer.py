@@ -1,12 +1,15 @@
-"""LM assembly for the dense, RWKV and hybrid families: init, forward,
-decode cache, decode.
+"""LM assembly for the dense, MoE, RWKV and hybrid families: init,
+forward, decode cache, decode.
 
-Port of the dense, ``rwkv`` and ``hybrid`` paths of
-``repro.models.transformer``.  Uniform-layer families (dense, rwkv) stack
-per-layer parameters on a leading axis as in the reference; the hybrid
+Port of the dense, ``moe``, ``rwkv`` and ``hybrid`` paths of
+``repro.models.transformer``.  Uniform-layer families (dense, moe, rwkv)
+stack per-layer parameters on a leading axis as in the reference; the hybrid
 (RecurrentGemma) family keeps a list of per-layer dictionaries, since its
 layers differ.  The port walks the layers in a Python loop (PyTorch runs
-eagerly, so there is no ``scan`` and no remat).
+eagerly, so there is no ``scan`` and no remat).  A MoE layer differs
+from a dense one only in its MLP (``layers.moe_ffn``); ``forward``
+returns the mean of its layers' load-balance losses.  The vlm and encdec
+families raise ``NotImplementedError``.
 
 Entry points:
     init_model(cfg, seed, device)                    -> params
@@ -19,26 +22,28 @@ and return the same dictionary.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple, Union
 
 import torch
 
 from .common import (DeviceLike, ModelConfig, Params, dense_init,
                      resolve_device, rms_norm)
-from .layers import Index, attention, init_attention, init_swiglu, swiglu
+from .layers import (Index, attention, init_attention, init_moe,
+                     init_swiglu, moe_ffn, swiglu)
 from .rglru import init_recurrent_block, recurrent_block
 from .rwkv6 import HEAD_SIZE, channel_mix, init_channel_mix, init_time_mix, \
     time_mix
 
 BIG_WINDOW = 1 << 30   # "global" attention sentinel
 
+#: a layer's load-balance loss: a 0-d float32 tensor, or 0.0 without experts
+Aux = Union[torch.Tensor, float]
+
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """Dense (without experts), rwkv and hybrid run; the other families
-    (moe, vlm, encdec) are not ported yet."""
-    ported = (cfg.arch_kind in ("rwkv", "hybrid")
-              or (cfg.arch_kind == "dense" and not cfg.n_experts))
-    if not ported:
+    """Dense, moe, rwkv and hybrid run; vlm and encdec are not ported
+    yet."""
+    if cfg.arch_kind not in ("dense", "moe", "rwkv", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: arch_kind={cfg.arch_kind!r} is not ported to "
             "repro_torch yet (ROADMAP.md)")
@@ -96,12 +101,6 @@ def _leaves(tree) -> List[torch.Tensor]:
 # init
 # ---------------------------------------------------------------------------
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
 def _init_decoder_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
     zeros = dict(dtype=torch.float32, device=gen.device)
     p: Params = {"ln1": torch.zeros((cfg.d_model,), **zeros),
@@ -111,8 +110,43 @@ def _init_decoder_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
         p["cmix"] = init_channel_mix(gen, cfg)
         return p
     p["attn"] = init_attention(gen, cfg)
-    p["mlp"] = init_swiglu(gen, cfg)
+    if cfg.n_experts:
+        p["moe"] = init_moe(gen, cfg)
+    else:
+        p["mlp"] = init_swiglu(gen, cfg)
     return p
+
+
+def _empty_stack(tree, n: int):
+    """Uninitialised tensors shaped like ``tree``'s with a leading axis
+    of ``n``."""
+    if isinstance(tree, dict):
+        return {k: _empty_stack(v, n) for k, v in tree.items()}
+    return tree.new_empty((n,) + tuple(tree.shape))
+
+
+def _init_stacked_layers(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """The uniform families' layers, stacked on a leading axis, drawn
+    layer after layer in the reference's order.  Each stacked tensor is
+    allocated once, and each layer's draws are copied into their slice
+    and dropped before the next layer is drawn: the peak holds the
+    weights and one layer's draws, not the weights twice."""
+    layer = _init_decoder_layer(gen, cfg)
+    stacked = _empty_stack(layer, cfg.n_layers)
+    for l in range(cfg.n_layers):
+        if l:
+            layer = _init_decoder_layer(gen, cfg)
+        _copy_leaves(_layer(stacked, l), layer)
+        layer = None
+    return stacked
+
+
+def _copy_leaves(dst, src) -> None:
+    """Copy each tensor of ``src`` into its twin in ``dst``, in place (in
+    a function of its own, so that no loop variable keeps a drawn tensor
+    alive into the next layer's draws)."""
+    for d, s in zip(_leaves(dst), _leaves(src)):
+        d.copy_(s)
 
 
 def _init_hybrid_layer(gen: torch.Generator, cfg: ModelConfig, l: int
@@ -151,8 +185,7 @@ def init_model(cfg: ModelConfig, seed: int = 0,
         params["layers"] = [_init_hybrid_layer(gen, cfg, l)
                             for l in range(cfg.n_layers)]
     else:
-        params["layers"] = _stack(
-            [_init_decoder_layer(gen, cfg) for _ in range(cfg.n_layers)])
+        params["layers"] = _init_stacked_layers(gen, cfg)
     return params
 
 
@@ -163,8 +196,10 @@ def init_model(cfg: ModelConfig, seed: int = 0,
 def _uniform_layer(cfg: ModelConfig, x: torch.Tensor, layer_p: Params,
                    window: Optional[int], positions: torch.Tensor,
                    cache: Optional[Params] = None,
-                   cache_index: Optional[Index] = None) -> torch.Tensor:
-    """One pre-norm decoder layer; the cache (if any) updates in place."""
+                   cache_index: Optional[Index] = None
+                   ) -> Tuple[torch.Tensor, Aux]:
+    """One pre-norm decoder layer: (x, aux), aux the MoE load-balance
+    loss (0.0 without experts); the cache (if any) updates in place."""
     h = rms_norm(x, layer_p["ln1"], cfg.norm_eps)
     if cfg.arch_kind == "rwkv":
         o, _ = time_mix(layer_p["tmix"], h, cfg,
@@ -174,7 +209,7 @@ def _uniform_layer(cfg: ModelConfig, x: torch.Tensor, layer_p: Params,
         o2, _ = channel_mix(layer_p["cmix"], h2,
                             state=cache["cmix"] if cache is not None
                             else None)
-        return x + o2
+        return x + o2, 0.0
     if cache is not None and cfg.kv_quant:
         c_in = (cache["k"], cache["v"], cache["k_scale"], cache["v_scale"])
     elif cache is not None:
@@ -184,7 +219,10 @@ def _uniform_layer(cfg: ModelConfig, x: torch.Tensor, layer_p: Params,
     x = x + attention(layer_p["attn"], h, cfg, positions, window=window,
                       cache=c_in, cache_index=cache_index)
     h2 = rms_norm(x, layer_p["ln2"], cfg.norm_eps)
-    return x + swiglu(layer_p["mlp"], h2, cfg)
+    if cfg.n_experts:
+        o2, aux = moe_ffn(layer_p["moe"], h2, cfg)
+        return x + o2, aux
+    return x + swiglu(layer_p["mlp"], h2, cfg), 0.0
 
 
 def _hybrid_layer(cfg: ModelConfig, x: torch.Tensor, layer_p: Params,
@@ -210,14 +248,15 @@ def _hybrid_layer(cfg: ModelConfig, x: torch.Tensor, layer_p: Params,
 
 
 def _layer_fns(params: Params, cfg: ModelConfig
-               ) -> List[Callable[..., torch.Tensor]]:
-    """One callable per layer: (x, positions, cache, index) -> x.  A
+               ) -> List[Callable[..., Tuple[torch.Tensor, Aux]]]:
+    """One callable per layer: (x, positions, cache, index) -> (x, aux),
+    aux the layer's MoE load-balance loss (0.0 without experts).  A
     global layer passes no window without a cache (as the reference's
     static windows do, so a long prefill takes window 0 in the chunked
     path or the flash kernel) and ``BIG_WINDOW`` with one."""
     if cfg.arch_kind == "hybrid":
-        return [lambda x, pos, c, i, lp=lp: _hybrid_layer(cfg, x, lp, pos,
-                                                          c, i)
+        return [lambda x, pos, c, i, lp=lp: (
+                    _hybrid_layer(cfg, x, lp, pos, c, i), 0.0)
                 for lp in params["layers"]]
     fns = []
     for l, win in enumerate(layer_windows(cfg)):
@@ -244,15 +283,17 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits, aux_loss); these families
-    have no auxiliary loss, so aux is 0."""
+    """Full-sequence forward.  Returns (logits, aux_loss): the mean over
+    layers of the MoE load-balance loss, as in the reference (0 for the
+    families without experts)."""
     _require_ported(cfg)
     x = params["embed"][tokens]
     positions = torch.arange(x.shape[1], device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for fn in _layer_fns(params, cfg):
-        x = fn(x, positions, None, None)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _logits(params, cfg, x), aux
+        x, aux = fn(x, positions, None, None)
+        aux_total = aux_total + aux
+    return _logits(params, cfg, x), aux_total / max(1, cfg.n_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -262,9 +303,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=None, device: DeviceLike = None) -> Params:
     """The decode cache in the reference's layout: KV (layers first) for
-    dense; (last token, state) per mixer for rwkv; per-layer dictionaries
-    with batch first for hybrid, whose local attention keeps a ring
-    buffer of min(max_len, local_window) slots."""
+    dense and moe; (last token, state) per mixer for rwkv; per-layer
+    dictionaries with batch first for hybrid, whose local attention keeps
+    a ring buffer of min(max_len, local_window) slots."""
     _require_ported(cfg)
     dtype = dtype or cfg.dtype
     dev = resolve_device(device)
@@ -335,5 +376,5 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         cache["layers"] if cfg.arch_kind == "hybrid"
         else [_layer(cache, l) for l in range(cfg.n_layers)])
     for fn, c in zip(_layer_fns(params, cfg), layer_caches):
-        x = fn(x, positions, c, index)
+        x, _ = fn(x, positions, c, index)
     return _logits(params, cfg, x), cache

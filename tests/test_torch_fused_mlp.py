@@ -106,6 +106,8 @@ def test_fused_mlp_long_t_matches_oracle():
     (8192, 2560, False, "rows", 0),           # float32: CUDA cores
     (256, 200, True, "cluster", 64),          # 25 columns a CTA -> 64
     (256, 8 * 320 + 8, True, "rows", 0),      # D-slice wider than a tile
+    (4, 5120, True, "rows", 0),               # decode, D = 5120
+    (512, 5120, True, "rows", 0),             # qwen1.5-32b prefill
 ])
 def test_choose_regime(T, D, bf16, regime, tile):
     assert choose_regime(T, D, bf16) == (regime, tile)

@@ -46,7 +46,10 @@ def _inputs(T, D, F, dtype, seed=0):
     (256, 2560, 10240),
     # ragged D-slices: 1000 / 8 = 125 columns a CTA (16-byte loads), and
     # 203 (element loads), neither a multiple of 8 x 16
-    (96, 1000, 256), (70, 203, 77)])
+    (96, 1000, 256), (70, 203, 77),
+    # D = 5120, wider than any cluster tile: phi3-medium-14b's and
+    # qwen1.5-32b's decode, and qwen1.5-32b's prefill in the rows regime
+    (4, 5120, 17920), (4, 5120, 27392), (512, 5120, 27392)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_mlp_kernel_matches_plain(T, D, F, dtype):
     _need_card()

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import get_config as jax_get_config
 from repro.models import decode_step as jax_decode_step
 from repro.models import forward as jax_forward
@@ -25,7 +26,9 @@ from repro.models.layers import attention as jax_attention
 from repro_torch.configs import get_config
 from repro_torch.models import (decode_step, forward, init_cache, init_model,
                                 params_from_jax)
+from repro_torch.models.common import dense_init
 from repro_torch.models.layers import CHUNKED_ATTN_THRESHOLD, attention
+from repro_torch.models.transformer import _init_decoder_layer
 
 ARCH = "qwen2.5-3b"
 _DRAWN = {"ln1", "ln2", "ln_f", "bq", "bk", "bv"}
@@ -91,9 +94,10 @@ def _run_decode(jcfg, tcfg, dtype, toks, pos0, per_slot):
         yield _np(jl), _np(tl)
 
 
-def test_configs_match_reference():
+@pytest.mark.parametrize("arch", sorted(JAX_ARCHS))
+def test_configs_match_reference(arch):
     for smoke in (False, True):
-        j, t = jax_get_config(ARCH, smoke), get_config(ARCH, smoke)
+        j, t = jax_get_config(arch, smoke), get_config(arch, smoke)
         jf, tf = dataclasses.asdict(j), dataclasses.asdict(t)
         assert jf.keys() == tf.keys()
         assert jf.pop("dtype") == jnp.bfloat16 and tf.pop("dtype") == \
@@ -101,7 +105,59 @@ def test_configs_match_reference():
         assert jf == tf
         assert (j.hd, j.padded_vocab) == (t.hd, t.padded_vocab)
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_config("granite-moe-1b-a400m")
+        get_config("granite-moe-2b-a800m")
+
+
+def _stacked_init(cfg, seed):
+    """``init_model`` as it was built before the stacked tensors were
+    allocated once: every layer drawn, then ``torch.stack``."""
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    params = {"embed": dense_init(gen, (cfg.padded_vocab, cfg.d_model),
+                                  cfg.dtype, scale=0.02),
+              "ln_f": torch.zeros((cfg.d_model,))}
+    if not cfg.tie_embeddings:
+        params["unembed"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab),
+                                       cfg.dtype)
+    params["layers"] = stack([_init_decoder_layer(gen, cfg)
+                              for _ in range(cfg.n_layers)])
+    return params
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "rwkv6-1.6b",
+                                  "granite-moe-1b-a400m"])
+def test_init_model_draws_match_stacked_construction(arch):
+    """The draws are bit for bit those of the construction that stacked
+    whole layers, whose ``dense_init`` scaled out of place."""
+    cfg = get_config(arch, smoke=True)
+    got = init_model(cfg, seed=5, device="cpu")
+    want = _stacked_init(cfg, seed=5)
+    gl = jax.tree_util.tree_leaves_with_path(got)
+    wl = jax.tree_util.tree_leaves_with_path(want)
+    assert [p for p, _ in gl] == [p for p, _ in wl]
+    for (path, a), (_, b) in zip(gl, wl):
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+    for dtype in (torch.bfloat16, torch.float32):
+        g1, g2 = torch.Generator(), torch.Generator()
+        g1.manual_seed(3)
+        g2.manual_seed(3)
+        w = dense_init(g1, (96, 40), dtype)
+        assert torch.equal(w, (torch.randn((96, 40), generator=g2)
+                               * 96 ** -0.5).to(dtype))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "whisper-medium"])
+def test_vlm_and_encdec_are_not_ported_yet(arch):
+    cfg = get_config(arch, smoke=True)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        init_model(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        forward({}, cfg, torch.zeros((1, 4), dtype=torch.long))
 
 
 def test_init_model_layout_matches_reference():
