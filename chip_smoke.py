@@ -19,9 +19,12 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    for ``fused_mlp``, the launch- or latency-bound kernels and flash
    attention, the kernel's device time by the profiler; ``fused_mlp``
    at qwen2.5-3b and gemma3-4b widths (decode, prefill, ragged T, ragged
-   D and F) and at D = 5120 (phi3-medium-14b's and qwen1.5-32b's decode,
-   qwen1.5-32b's (1, 512) prefill in the rows regime), with each row's
-   regime, and flash attention at the model paths' shapes, in bf16
+   D and F), at D = 5120 (phi3-medium-14b's and qwen1.5-32b's decode,
+   qwen1.5-32b's (1, 512) prefill in the rows regime) and at qwen2-vl-2b's
+   width (decode, and its (2, 1024) forward's prefill), with each row's
+   regime, and flash attention at the model paths' shapes (whisper's
+   non-causal encoder over 1500 frames, its cross-attention in forward
+   and in decode, one query row, among them), in bf16
    (tensor cores, also held to a limit in bf16 ulps) and float32, each
    also called twice and required to give the same bits; just before
    and after each flash timing window, the card's SM clock, power and
@@ -41,9 +44,10 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    bf16 weights from a seed, each built by ``init_model`` on a card that
    holds no other, its peak memory held to the weights + 2 GB:
    qwen2.5-3b, rwkv6-1.6b, recurrentgemma-2b, gemma3-4b,
-   phi3-medium-14b, qwen1.5-32b, granite-moe-1b-a400m and
-   moonshot-v1-16b-a3b each answer 6 requests through ``ServeEngine``
-   with the kernels on; the launch counts of each run must show every
+   phi3-medium-14b, qwen1.5-32b, granite-moe-1b-a400m,
+   moonshot-v1-16b-a3b and qwen2-vl-2b (text only) each answer 6 requests
+   through ``ServeEngine`` with the kernels on; the launch counts of each
+   run must show every
    kernel of its path once per layer that runs it and tick (fused_mlp,
    wkv6, rglru_chunked; none for the MoE archs, whose experts are plain
    products) and no other kernel (flash attention runs only without a
@@ -68,6 +72,18 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    (``forward_slice``): bf16 logits against the plain path on the
    positions whose MoE routing agrees in every layer, the routing flips
    counted, and each layer in float32, one layer's twin at a time;
+   qwen2-vl-2b runs ``forward`` on 2 prompts of 256 patch embeddings and
+   768 tokens (``forward_vlm``: one flash and one ``fused_mlp`` launch a
+   layer, bf16 logits against the plain path, each layer in float32, one
+   layer's twin at a time); whisper-medium (``whisper_arch``, not served:
+   the reference's ``ServeEngine`` has no enc-dec path) runs
+   ``encode_frames`` and ``whisper_forward`` on 4 x 1500 frames and 4 x 64
+   tokens (72 flash launches, nothing else), bf16 logits against the
+   plain path and each encoder and decoder layer as a float32 twin, then
+   32 teacher-forced ``whisper_decode_step``s from the encoded cache (24
+   flash launches a step, cross-attention), each step's logits against
+   the forward's at that position, and one step against the plain path
+   and again from a copy of the cache for the same bits;
 5. plan: the 8 XR-bench tasks on ``PAPER_HW``/AMP through
    ``get_planner().plan(PlanRequest(g, engine=...))``, the torch engine
    on ``cuda`` and the numpy engine in turns (three rounds, the order
@@ -87,11 +103,13 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    through the CUDA ``maxplus_chunked``, against ``engine="numpy"``,
    and one scan's call time through the staged copy beside the same
    scan through two pageable copies;
-7. small reference: the eight smoke configs in float32 on the card,
+7. small reference: the ten smoke configs in float32 on the card,
    decode logits (plain attention) against prefill logits (the flash
    kernel) at every position (the hybrid past its local attention's
    ring-buffer wrap, gemma3-4b past its local window, the MoE configs
-   with capacity for every token).
+   with capacity for every token, whisper's decode against
+   ``whisper_forward``, qwen2-vl's text-only decode against the dense
+   forward of the same weights).
 
 Any failure raises and exits non-zero.  The second-last line is the JSON
 kernel table; the last line is the device record.  The full results go
@@ -140,19 +158,23 @@ CLEAN_CARD_BYTES = 1e9
 
 #: (label, T, D, F): qwen2.5-3b width (the serve path's 4 slots, a
 #: 256-token prompt, a ragged T), gemma3-4b width (4 slots, and the
-#: (1, 8192) forward's prefill) and D = 5120: phi3-medium-14b's and
+#: (1, 8192) forward's prefill), D = 5120: phi3-medium-14b's and
 #: qwen1.5-32b's 4 slots, and qwen1.5-32b's (1, 512) forward, which the
-#: rows regime takes (no cluster tile holds D / 8 = 640 columns)
+#: rows regime takes (no cluster tile holds D / 8 = 640 columns), and
+#: qwen2-vl-2b's 4 slots and its (2, 256 + 768) forward
 FUSED_MLP_SHAPES = [("decode", 4, 2048, 11008), ("prefill", 256, 2048, 11008),
                     ("ragged", 5, 2048, 11008),
                     ("decode-gemma", 4, 2560, 10240),
                     ("prefill-gemma", 8192, 2560, 10240),
                     ("decode-phi3", 4, 5120, 17920),
                     ("decode-qwen32", 4, 5120, 27392),
-                    ("prefill-qwen32", 512, 5120, 27392)]
+                    ("prefill-qwen32", 512, 5120, 27392),
+                    ("decode-vlm", 4, 1536, 8960),
+                    ("prefill-vlm", 2048, 1536, 8960)]
 #: prefill rows that float32 checks without timing
 FUSED_MLP_UNTIMED = {("prefill-gemma", "float32"),
-                     ("prefill-qwen32", "float32")}
+                     ("prefill-qwen32", "float32"),
+                     ("prefill-vlm", "float32")}
 
 #: the simulator scans one row of T <= 512 bursts (DEFAULT_MAX_BURSTS);
 #: a row past one tile of 1024 steps carries between tiles; (label, B, T)
@@ -207,7 +229,11 @@ FLASH_ULP_LIMIT = 4.0
 #: recurrentgemma-2b's forward (10 heads, 1 KV head, window 2048);
 #: whisper's cross-attention shape (not causal, T != S); and the (1, 512)
 #: forwards of qwen1.5-32b (MHA 40/40), phi3-medium-14b (GQA 40/10),
-#: granite-moe-1b-a400m (16/8 at hd 64) and moonshot-v1-16b-a3b (16/16)
+#: granite-moe-1b-a400m (16/8 at hd 64) and moonshot-v1-16b-a3b (16/16);
+#: qwen2-vl-2b's (2, 256 patches + 768 text) forward (GQA 12/2, hd 128);
+#: whisper-medium's 4 x 1500-frame encoder (not causal, T not a multiple
+#: of the kv tile), its decoder's self-attention and cross-attention over
+#: 64 tokens, and the cross-attention of its decode step (one query row)
 FLASH_SHAPES = [("local-8192", 1, 8192, 8192, 8, 4, 256, True, 1024),
                 ("global-8192", 1, 8192, 8192, 8, 4, 256, True, 0),
                 ("local-2x2048", 2, 2048, 2048, 8, 4, 256, True, 1024),
@@ -218,7 +244,12 @@ FLASH_SHAPES = [("local-8192", 1, 8192, 8192, 8, 4, 256, True, 1024),
                 ("qwen32-1x512", 1, 512, 512, 40, 40, 128, True, 0),
                 ("phi3-1x512", 1, 512, 512, 40, 10, 128, True, 0),
                 ("granite-1x512", 1, 512, 512, 16, 8, 64, True, 0),
-                ("moonshot-1x512", 1, 512, 512, 16, 16, 128, True, 0)]
+                ("moonshot-1x512", 1, 512, 512, 16, 16, 128, True, 0),
+                ("vlm-2x1024", 2, 1024, 1024, 12, 2, 128, True, 0),
+                ("whisper-enc-4x1500", 4, 1500, 1500, 16, 16, 64, False, 0),
+                ("whisper-self-4x64", 4, 64, 64, 16, 16, 64, True, 0),
+                ("whisper-cross-4x64", 4, 64, 1500, 16, 16, 64, False, 0),
+                ("whisper-xdec-4x1", 4, 1, 1500, 16, 16, 64, False, 0)]
 
 
 def fail(msg: str) -> None:
@@ -758,9 +789,10 @@ def check_flash(label: str, B: int, S: int, T: int, H: int, Hkv: int,
     its time by CUDA events and by the profiler, the card's readings
     around each timing window, the bound and
     ``scaled_dot_product_attention`` as the yardstick.  bf16 rows are
-    also held to ``FLASH_ULP_LIMIT`` ulps; on causal rows the reading of
-    the reference with the oldest kv tile (64 keys) cut from the rows
-    that reach it shows that this limit sees such a fault."""
+    also held to ``FLASH_ULP_LIMIT`` ulps; on causal rows longer than one
+    kv tile the reading of the reference with the oldest kv tile (64
+    keys) cut from the rows that reach it shows that this limit sees such
+    a fault."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (_mask, attention_op,
@@ -793,8 +825,8 @@ def check_flash(label: str, B: int, S: int, T: int, H: int, Hkv: int,
     ulp_err = fault_ulp = None
     if dtype == torch.bfloat16:
         ulp_err = _ulp_err(out.float(), exp.float())
-        if causal:
-            cut = min(window if window > 0 else S, S) - 64
+        cut = min(window if window > 0 else S, S) - 64
+        if causal and cut > 0:
             fault = attention_op_ref(q, k, v, causal=True, window=cut)
             fault_ulp = _ulp_err(fault.float(), exp.float())
             del fault
@@ -1307,9 +1339,16 @@ def _per_call(cfg, forward: bool = False) -> dict:
     without the config); flash attention runs on every attention layer
     of a forward and never in decode.  A MoE layer's experts are plain
     products, as in the reference: its decode runs no hand-written
-    kernel, its forward the flash kernel only."""
+    kernel, its forward the flash kernel only.  A vlm layer is a dense
+    one.  The encoder-decoder's MLP is plain GELU (no kernel in the
+    reference): its forward runs flash in every encoder layer and twice in
+    every decoder layer (self- and cross-attention), its decode step once
+    a decoder layer (cross-attention; self-attention reads the cache)."""
     n = {"fused_mlp": 0, "wkv6": 0, "rglru_chunked": 0, "flash_attention": 0}
-    if cfg.arch_kind == "moe":
+    if cfg.arch_kind == "encdec":
+        n["flash_attention"] = (cfg.n_enc_layers + 2 * cfg.n_layers
+                                if forward else cfg.n_layers)
+    elif cfg.arch_kind == "moe":
         n["flash_attention"] = cfg.n_layers if forward else 0
     elif cfg.arch_kind == "rwkv":
         n["wkv6"] = cfg.n_layers
@@ -1415,10 +1454,10 @@ def serve_arch(arch: str, params, cfg):
     with the kernels on; every kernel of the path must launch once per
     layer that runs it and tick, and no other; then one decode step is
     compared with the plain path from the same cache: in bf16 for the
-    dense and moe archs, through ``_float32_twin`` (the cache cast to
+    dense, moe and vlm archs, through ``_float32_twin`` (the cache cast to
     float32) for the recurrent ones.  The kernel path's step is taken a
     second time from another copy of the cache and must give the same
-    bits."""
+    bits.  A vlm serves text only, as the reference's decode."""
     import torch
     from repro_torch.models import decode_step
     from repro_torch.runtime.serve_loop import Request, ServeEngine
@@ -1471,7 +1510,8 @@ def serve_arch(arch: str, params, cfg):
     # one decode step from the same cache state, kernel path vs plain
     feed = torch.tensor([[3 + s] for s in range(engine.B)], device="cuda")
     index = torch.from_numpy(engine.pos.copy()).to("cuda")
-    p_cmp, c_cmp = ((params, cfg) if cfg.arch_kind in ("dense", "moe")
+    p_cmp, c_cmp = ((params, cfg) if cfg.arch_kind in ("dense", "moe",
+                                                        "vlm")
                     else _float32_twin(params, cfg))
     logits = {}
     with torch.inference_mode():
@@ -2079,31 +2119,275 @@ def forward_slice(arch: str, params, cfg, B: int = 1, S: int = 512):
     return row
 
 
-def profile_forward(params, cfg, toks):
-    """Device time of one kernel-path ``forward`` by ``torch.profiler``:
-    the sum of kernel durations, each hand-written kernel's part, and
-    the rest (cuBLAS projections, the LM head, norms, RoPE)."""
+def _timed(fn):
+    """(``fn()``, its seconds on the host clock, synchronised)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _layer_rel(kernel_out, plain_out) -> float:
+    return float((kernel_out - plain_out).abs().max()
+                 / kernel_out.abs().max())
+
+
+def forward_vlm(arch: str, params, cfg, B: int = 2, S_text: int = 768):
+    """qwen2-vl-2b's ``forward`` at full width on B prompts of
+    ``cfg.n_patches`` patch embeddings (drawn from a seed) and ``S_text``
+    text tokens, in bf16 with the kernels (one flash and one ``fused_mlp``
+    launch a layer, nothing else) and on the plain path, timed; the bf16
+    logits (text positions) against the plain path's (``LOGIT_TOL``).
+    Then one layer's float32 twin at a time, M-RoPE positions as the
+    forward's: each layer's output with the kernels against the plain
+    path's from the same input (``LAYER_TOL``)."""
+    import torch
+    from repro_torch.models import forward
+    from repro_torch.models.transformer import (_layer, _uniform_layer,
+                                                _vlm_positions)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    P = cfg.n_patches
+    toks = torch.randint(0, cfg.vocab, (B, S_text), generator=gen,
+                         device="cuda")
+    patches = torch.randn((B, P, cfg.d_model), generator=gen, device="cuda")
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    secs, logits = {}, {}
+    with torch.inference_mode():
+        forward(params, cfg, toks[:, :8], patch_embeds=patches)  # warm-up
+        forward(params, plain_cfg, toks, patch_embeds=patches)
+        for use in (True, False):
+            _zero_counts()
+            (logits[use], _), secs[use] = _timed(lambda: forward(
+                params, cfg if use else plain_cfg, toks,
+                patch_embeds=patches))
+            if use:
+                launches = _counts()
+        check(logits[True].shape == (B, S_text, cfg.padded_vocab),
+              f"{arch} forward: logits {tuple(logits[True].shape)}")
+        rel, agree = _rel_logit_diff(logits[True], logits[False], cfg)
+        del logits
+        breakdown = profile_forward(params, cfg, toks, fn=lambda: forward(
+            params, cfg, toks, patch_embeds=patches))
+
+        c32 = dataclasses.replace(cfg, dtype=torch.float32)
+        plain32 = dataclasses.replace(c32, use_kernels=False)
+        mrope = _vlm_positions(cfg, B, S_text, "cuda")
+        positions = torch.arange(P + S_text, device="cuda")
+        x = torch.cat([patches @ params["patch_proj"].float(),
+                       params["embed"][toks].float()], dim=1)
+        layer_rel = []
+        for l in range(cfg.n_layers):
+            lp = _copy(_layer(params["layers"], l), torch.float32)
+            nk, _ = _uniform_layer(c32, x, lp, None, positions,
+                                   mrope_positions=mrope)
+            same, _ = _uniform_layer(plain32, x, lp, None, positions,
+                                     mrope_positions=mrope)
+            layer_rel.append(_layer_rel(nk, same))
+            x = nk
+            del lp, same
+        del x, nk
+    for name, per_call in _per_call(cfg, forward=True).items():
+        check(launches[name] == per_call,
+              f"{arch} forward: {name} launched {launches[name]} times, "
+              f"expected {per_call}")
+    row = {"arch": arch, "B": B, "patches": P, "S_text": S_text,
+           "S": P + S_text, "kernel_s": secs[True], "plain_s": secs[False],
+           "launches": launches, "profile": breakdown,
+           "layer_rel_diff_max": max(layer_rel), "layer_tol": LAYER_TOL,
+           "layer_rel_diff": layer_rel, "logit_rel_diff_bf16": rel,
+           "logit_tol": LOGIT_TOL, "argmax_agreement_bf16": agree}
+    print("forward " + json.dumps({k: v for k, v in row.items()
+                                   if k != "layer_rel_diff"}))
+    print(f"{arch} forward ({B}, {P} + {S_text}), float32 one layer's twin "
+          f"at a time, each layer kernel vs plain from the same input, max "
+          f"|diff| / max |x| after layers 1, 6, 12, 18, last: "
+          f"{_picks(layer_rel)}; bf16 logits off by {rel:.3g}")
+    check(max(layer_rel) <= LAYER_TOL,
+          f"{arch} forward: a layer's kernel-path output is off by "
+          f"{max(layer_rel):.3g} (tol {LAYER_TOL}): {layer_rel}")
+    check(rel <= LOGIT_TOL,
+          f"{arch} forward: bf16 kernel-path logits off the plain path's by "
+          f"{rel:.3g} (tol {LOGIT_TOL})")
+    return row
+
+
+def whisper_arch(arch: str, params, cfg, B: int = 4, S: int = 64,
+                 steps: int = 32):
+    """whisper-medium at full width on B x ``cfg.enc_frames`` frame
+    embeddings (drawn from a seed) and B x S tokens, in bf16.
+
+    ``encode_frames`` and ``whisper_forward`` with the kernels (flash in
+    every encoder layer, and for self- and cross-attention in every
+    decoder layer; nothing else: the GELU MLP is plain, as in the
+    reference) and on the plain path, timed; the bf16 logits against the
+    plain path's (``LOGIT_TOL``).  Each encoder and decoder layer as a
+    float32 twin, one layer at a time, kernels against plain from the
+    same input (``LAYER_TOL``).  Then ``steps`` teacher-forced
+    ``whisper_decode_step``s from the encoded cache (one flash launch a
+    decoder layer: cross-attention with one query row), each step's bf16
+    logits against the forward's at that position (``LOGIT_TOL``), which
+    holds only with the embedding of position ``index``.  One more step
+    kernel vs plain from copies of the cache, and again from another copy
+    for the same bits."""
+    import torch
+    from repro_torch.models import (encode_frames, init_cache,
+                                    whisper_decode_step, whisper_forward)
+    from repro_torch.models.common import rms_norm, sinusoidal_positions
+    from repro_torch.models.transformer import _dec_layer, _enc_layer, _layer
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    T = cfg.enc_frames
+    frames = torch.randn((B, T, cfg.d_model), generator=gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    secs, logits = {}, {}
+    with torch.inference_mode():
+        whisper_forward(params, cfg, frames, toks)            # warm-up
+        whisper_forward(params, plain_cfg, frames, toks)
+        enc, secs["encoder"] = _timed(lambda: encode_frames(params, cfg,
+                                                            frames))
+        for use in (True, False):
+            _zero_counts()
+            logits[use], secs[use] = _timed(lambda: whisper_forward(
+                params, cfg if use else plain_cfg, frames, toks))
+            if use:
+                launches = _counts()
+        check(logits[True].shape == (B, S, cfg.padded_vocab),
+              f"{arch} forward: logits {tuple(logits[True].shape)}")
+        rel, agree = _rel_logit_diff(logits[True], logits[False], cfg)
+        breakdown = profile_forward(
+            params, cfg, toks, label="whisper_forward",
+            fn=lambda: whisper_forward(params, cfg, frames, toks))
+
+        # teacher-forced decode from the encoded cache
+        cache = dict(init_cache(cfg, B, 2 * S, device="cuda"), enc=enc)
+        step_rel, step_launches, step_secs = [], [], []
+        for i in range(steps):
+            _zero_counts()
+            (lg, cache), dt = _timed(lambda: whisper_decode_step(
+                params, cfg, toks[:, i:i + 1], cache, i))
+            step_launches.append(_counts())
+            step_secs.append(dt)
+            step_rel.append(_rel_logit_diff(lg, logits[True][:, i:i + 1],
+                                            cfg)[0])
+        feed = toks[:, steps:steps + 1]
+        one = {}
+        for use in (True, False):
+            one[use], _ = whisper_decode_step(
+                params, cfg if use else plain_cfg, feed, _copy(cache), steps)
+        again, _ = whisper_decode_step(params, cfg, feed, _copy(cache), steps)
+        repeatable = bool(torch.equal(again, one[True]))
+        step_vs_plain, _ = _rel_logit_diff(one[True], one[False], cfg)
+        del logits, one, again, cache
+
+        # float32 twins, one layer at a time
+        c32 = dataclasses.replace(cfg, dtype=torch.float32)
+        plain32 = dataclasses.replace(c32, use_kernels=False)
+        pos_enc = torch.arange(T, device="cuda")
+        x = frames + sinusoidal_positions(T, cfg.d_model, device="cuda")
+        enc_rel, dec_rel = [], []
+        for l in range(cfg.n_enc_layers):
+            lp = _copy(_layer(params["enc_layers"], l), torch.float32)
+            nk = _enc_layer(c32, x, lp, pos_enc)
+            enc_rel.append(_layer_rel(nk, _enc_layer(plain32, x, lp,
+                                                     pos_enc)))
+            x = nk
+            del lp
+        enc32 = rms_norm(x, params["ln_enc"], cfg.norm_eps)
+        pos_dec = torch.arange(S, device="cuda")
+        x = (params["embed"][toks].float()
+             + sinusoidal_positions(S, cfg.d_model, device="cuda"))
+        for l in range(cfg.n_layers):
+            lp = _copy(_layer(params["dec_layers"], l), torch.float32)
+            nk = _dec_layer(c32, x, lp, pos_dec, enc32)
+            dec_rel.append(_layer_rel(nk, _dec_layer(plain32, x, lp, pos_dec,
+                                                     enc32)))
+            x = nk
+            del lp
+        del x, nk, enc32, enc
+    for name, per_call in _per_call(cfg, forward=True).items():
+        check(launches[name] == per_call,
+              f"{arch} forward: {name} launched {launches[name]} times, "
+              f"expected {per_call}")
+    for i, got in enumerate(step_launches):
+        for name, per_call in _per_call(cfg).items():
+            check(got[name] == per_call,
+                  f"{arch} decode step {i}: {name} launched {got[name]} "
+                  f"times, expected {per_call}")
+    row = {"arch": arch, "B": B, "frames": T, "S": S,
+           "encoder_s": secs["encoder"], "kernel_s": secs[True],
+           "plain_s": secs[False], "launches": launches,
+           "profile": breakdown, "logit_rel_diff_bf16": rel,
+           "logit_tol": LOGIT_TOL, "argmax_agreement_bf16": agree,
+           "decode_steps": steps,
+           "decode_step_s": sum(step_secs[1:]) / (steps - 1),
+           "decode_step_launches": step_launches[0],
+           "decode_vs_forward_rel_max": max(step_rel),
+           "decode_vs_forward_rel": step_rel,
+           "decode_step_vs_plain": step_vs_plain,
+           "decode_repeatable": repeatable,
+           "enc_layer_rel_diff_max": max(enc_rel),
+           "dec_layer_rel_diff_max": max(dec_rel), "layer_tol": LAYER_TOL,
+           "enc_layer_rel_diff": enc_rel, "dec_layer_rel_diff": dec_rel}
+    print("forward " + json.dumps({k: v for k, v in row.items()
+                                   if k not in ("enc_layer_rel_diff",
+                                                "dec_layer_rel_diff",
+                                                "decode_vs_forward_rel")}))
+    print(f"{arch}: float32 twins, each layer kernel vs plain from the same "
+          f"input, encoder after layers 1, 6, 12, 18, last "
+          f"{_picks(enc_rel)}, decoder {_picks(dec_rel)}; {steps} decode "
+          f"steps vs forward, bf16, {_picks(step_rel)}")
+    check(max(enc_rel + dec_rel) <= LAYER_TOL,
+          f"{arch}: a layer's kernel-path output is off by "
+          f"{max(enc_rel + dec_rel):.3g} (tol {LAYER_TOL}): {enc_rel} "
+          f"{dec_rel}")
+    check(rel <= LOGIT_TOL,
+          f"{arch} forward: bf16 kernel-path logits off the plain path's by "
+          f"{rel:.3g} (tol {LOGIT_TOL})")
+    check(max(step_rel) <= LOGIT_TOL,
+          f"{arch}: a decode step's bf16 logits are off the forward's by "
+          f"{max(step_rel):.3g} (tol {LOGIT_TOL}): {step_rel}")
+    check(step_vs_plain <= LOGIT_TOL,
+          f"{arch}: decode step kernel path off the plain path by "
+          f"{step_vs_plain:.3g}")
+    check(repeatable, f"{arch}: two decode steps from the same cache gave "
+                      "different bits")
+    return row
+
+
+def profile_forward(params, cfg, toks, fn=None, label: str = "forward"):
+    """Device time of one kernel-path ``forward`` (or of ``fn()``) by
+    ``torch.profiler``: the sum of kernel durations, each hand-written
+    kernel's part, and the rest (cuBLAS projections, the LM head, norms,
+    RoPE)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import forward
+    fn = fn or (lambda: forward(params, cfg, toks))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        forward(params, cfg, toks)
+        fn()
         torch.cuda.synchronize()
     out = _device_time(prof, 1)
     if out is None:
         return None
     out["other_ms"] = out["device_ms"] - sum(
         out.get(f"{name}_ms", 0.0) for name in MODEL_KERNELS)
-    print(f"profile forward {cfg.name} " + json.dumps(out))
+    print(f"profile {label} {cfg.name} " + json.dumps(out))
     return out
 
 
 #: the archs whose forward ``forward_slice`` runs at (1, 512)
 SLICE_ARCHS = ("phi3-medium-14b", "qwen1.5-32b", "granite-moe-1b-a400m",
                "moonshot-v1-16b-a3b")
+#: the last two archs of the zoo: qwen2-vl-2b serves (text only) and runs
+#: ``forward_vlm``; whisper-medium runs ``whisper_arch`` (no serving)
+ZOO_ARCHS = ("qwen2-vl-2b", "whisper-medium")
 
 
 def phase_models():
@@ -2113,10 +2397,18 @@ def phase_models():
     import torch
     serves, forwards, inits = {}, {}, {}
     for arch in ("qwen2.5-3b", "rwkv6-1.6b", "recurrentgemma-2b",
-                 "gemma3-4b") + SLICE_ARCHS:
+                 "gemma3-4b") + SLICE_ARCHS + ZOO_ARCHS:
         cfg, params, _, inits[arch] = _load_model(arch)
+        if cfg.arch_kind == "encdec":
+            # no serving: the reference's ServeEngine has no enc-dec path
+            forwards[arch] = whisper_arch(arch, params, cfg)
+            del params
+            torch.cuda.empty_cache()
+            continue
         serves[arch] = serve_arch(arch, params, cfg)
-        if arch in SLICE_ARCHS:
+        if cfg.arch_kind == "vlm":
+            forwards[arch] = forward_vlm(arch, params, cfg)
+        elif arch in SLICE_ARCHS:
             forwards[arch] = forward_slice(arch, params, cfg)
         elif cfg.arch_kind != "dense":
             forwards[arch] = forward_arch(arch, params, cfg)
@@ -2181,6 +2473,61 @@ def phase_small_reference():
               f"{arch}: decode disagrees with prefill, per position "
               f"{per_t.tolist()}")
         out[arch] = {"tokens": n, "max_len": max_len, "max_abs_err": err,
+                     "tol": SMALL_TOL}
+    out.update(_small_zoo())
+    return out
+
+
+def _small_zoo():
+    """The last two smoke configs in float32 on the card, kernels on.
+    whisper: ``whisper_decode_step`` (self-attention plain from the cache,
+    cross-attention through the flash kernel at S = 1) against
+    ``whisper_forward`` at every position.  qwen2-vl: its decode is
+    text-only with plain RoPE at the cache index (the reference's), so
+    what it computes is the dense forward of the same weights with no
+    patches; it is held against that, not against the vlm ``forward``
+    with patches (which ``forward_vlm`` holds against its plain path)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, encode_frames, forward,
+                                    init_cache, init_model,
+                                    whisper_decode_step, whisper_forward)
+    out = {}
+    n = 12
+    for arch in ZOO_ARCHS:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  dtype=torch.float32, use_kernels=True)
+        params = init_model(cfg, seed=1, device="cuda")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(2)
+        toks = torch.randint(0, cfg.vocab, (2, n), generator=gen,
+                             device="cuda")
+        cache = init_cache(cfg, 2, n, device="cuda")
+        with torch.inference_mode():
+            if cfg.arch_kind == "encdec":
+                frames = torch.randn((2, cfg.enc_frames, cfg.d_model),
+                                     generator=gen, device="cuda")
+                full = whisper_forward(params, cfg, frames, toks)
+                cache["enc"] = encode_frames(params, cfg, frames)
+                step, against = whisper_decode_step, "whisper_forward"
+            else:
+                full, _ = forward(params, dataclasses.replace(
+                    cfg, arch_kind="dense"), toks)
+                step, against = decode_step, "the dense forward"
+            steps = []
+            for i in range(n):
+                lg, cache = step(params, cfg, toks[:, i:i + 1], cache, i)
+                steps.append(lg[:, 0])
+        per_t = (torch.stack(steps, 1) - full).abs().amax(dim=(0, 2))
+        err = float(per_t.max())
+        scale = float(full.abs().max())
+        print(f"small reference ({cfg.name}, float32, kernels on, {n} "
+              f"tokens): decode vs {against} max err {err:.3g} (logit scale "
+              f"{scale:.3g}, tol {SMALL_TOL} abs + rel)")
+        check(err <= SMALL_TOL * (1 + scale),
+              f"{arch}: decode disagrees with forward, per position "
+              f"{per_t.tolist()}")
+        out[arch] = {"tokens": n, "max_len": n, "max_abs_err": err,
                      "tol": SMALL_TOL}
     return out
 
@@ -2247,6 +2594,17 @@ def main() -> None:
         arch: {"serve": serves[arch]["launches"]["fused_mlp"],
                "forward": forwards[arch]["launches"]["fused_mlp"]}
         for arch in SLICE_ARCHS[:2]}
+    # fused_mlp at qwen2-vl-2b's width (D = 1536, F = 8960): its decode and
+    # prefill rows, and the launches of its serve run and forward
+    kernels[0]["vlm"] = {
+        r["shape"]: {k: r[k] for k in (
+            "T", "D", "F", "regime", "max_abs_err", "ms", "device_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for r in rows if r["shape"] in ("decode-vlm", "prefill-vlm")
+        and r["dtype"] == "bfloat16"}
+    kernels[0]["vlm_launches"] = {
+        "serve": serves["qwen2-vl-2b"]["launches"]["fused_mlp"],
+        "forward": forwards["qwen2-vl-2b"]["launches"]["fused_mlp"]}
     # the planner's kernels: no single PyTorch call computes either
     # function (a max-plus scan; the Fig. 3 recurrence), so library_ms is
     # null; their main rows are the simulator's one-row T = 512 scan and
@@ -2354,7 +2712,24 @@ def main() -> None:
             for r in flash_rows if r["shape"].endswith("-1x512")
             and r["dtype"] == "bfloat16"},
         "slice_launches": {arch: forwards[arch]["launches"]["flash_attention"]
-                           for arch in SLICE_ARCHS}})
+                           for arch in SLICE_ARCHS},
+        # qwen2-vl-2b's and whisper-medium's shapes: each bf16 row, and the
+        # launches of the vlm forward, the whisper forward and one whisper
+        # decode step
+        "zoo_rows": {r["shape"]: {k: r[k] for k in (
+            "B", "S", "T", "H", "Hkv", "hd", "causal", "regime",
+            "max_abs_err", "ulp_err", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")}
+            for r in flash_rows if r["shape"].startswith(("vlm-", "whisper-"))
+            and r["dtype"] == "bfloat16"},
+        "zoo_launches": {
+            "qwen2-vl-2b forward": (
+                forwards["qwen2-vl-2b"]["launches"]["flash_attention"]),
+            "whisper-medium forward": (
+                forwards["whisper-medium"]["launches"]["flash_attention"]),
+            "whisper-medium decode step": (
+                forwards["whisper-medium"]["decode_step_launches"]
+                ["flash_attention"])}})
     record = {"card": smi, "kernels": kernels, "fused_mlp_rows": rows,
               "maxplus_rows": mp_rows, "maxplus_exact": mp_exact,
               "price_rows_rows": pr_rows, "price_rows_calls": pr_calls,

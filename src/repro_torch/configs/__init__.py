@@ -1,10 +1,10 @@
 """Architecture registry of the port: the reference's ten archs.
 
 ``get_config(arch_id, smoke=False)`` returns the published config (or its
-reduced smoke sibling), as ``repro.configs.get_config`` does.  Eight of
-them run; the vlm (qwen2-vl-2b) and encdec (whisper-medium) configs
-resolve, and ``init_model`` and ``forward`` raise ``NotImplementedError``
-for them (``ROADMAP.md``).
+reduced smoke sibling), as ``repro.configs.get_config`` does.  All ten
+run; whisper-medium (encdec) through ``encode_frames``,
+``whisper_forward`` and ``whisper_decode_step`` rather than ``forward``
+and ``decode_step``.
 """
 from __future__ import annotations
 

@@ -3,17 +3,19 @@
     PYTHONPATH=src python -m repro_torch.launch.serve [--arch qwen2.5-3b] \
         [--smoke] [--use-kernels] [--kv-quant] [--requests 6] [--max-new 12]
 
-Serves the published config of ``--arch`` (one of the eight archs that
-run: qwen2.5-3b, qwen1.5-32b, phi3-medium-14b, gemma3-4b,
-granite-moe-1b-a400m, moonshot-v1-16b-a3b, rwkv6-1.6b or
-recurrentgemma-2b; random weights from seed 0) on the card by default;
-``--smoke`` takes the reduced sibling, and ``--device cpu`` runs on the
-CPU.  qwen2-vl-2b and whisper-medium fail with ``NotImplementedError``
-before any weight is drawn.  ``--use-kernels`` runs every hand-written
-CUDA kernel of the decode path: the fused SwiGLU (dense MLPs, e.g. all
-34 of gemma3-4b's layers), the WKV6 recurrence (rwkv) and the RG-LRU
-recurrence (hybrid); a MoE arch's experts are plain products, as in the
-reference, so its decode runs no hand-written kernel.
+Serves the published config of ``--arch`` (random weights from seed 0)
+on the card by default; ``--smoke`` takes the reduced sibling, and
+``--device cpu`` runs on the CPU.  Nine archs serve: qwen2.5-3b,
+qwen1.5-32b, phi3-medium-14b, gemma3-4b, granite-moe-1b-a400m,
+moonshot-v1-16b-a3b, rwkv6-1.6b, recurrentgemma-2b and qwen2-vl-2b (text
+only, with plain RoPE at the cache index, as the reference's decode).
+whisper-medium fails with ``NotImplementedError`` before any weight is
+drawn: the reference's ``ServeEngine`` has no enc-dec path.
+``--use-kernels`` runs every hand-written CUDA kernel of the decode
+path: the fused SwiGLU (dense and vlm MLPs, e.g. all 34 of gemma3-4b's
+layers), the WKV6 recurrence (rwkv) and the RG-LRU recurrence (hybrid);
+a MoE arch's experts are plain products, as in the reference, so its
+decode runs no hand-written kernel.
 Decode attention stays plain: the flash-attention kernel serves
 attention without a cache (``forward``), and a decode query sits at a
 per-slot position against a per-slot cache fill, which that kernel,
@@ -31,7 +33,8 @@ import torch
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.models import init_model, resolve_device
-from repro_torch.runtime.serve_loop import Request, ServeEngine
+from repro_torch.runtime.serve_loop import (Request, ServeEngine,
+                                          require_servable)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -53,6 +56,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     cfg = dataclasses.replace(get_config(args.arch, smoke=args.smoke),
                               kv_quant=args.kv_quant,
                               use_kernels=args.use_kernels)
+    require_servable(cfg)
     params = init_model(cfg, seed=0, device=device)
     engine = ServeEngine(params, cfg, batch_slots=args.slots,
                          max_len=args.max_len, device=device)

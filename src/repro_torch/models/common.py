@@ -1,4 +1,5 @@
-"""Shared model machinery: config, device choice, norms, RoPE, init.
+"""Shared model machinery: config, device choice, norms, RoPE (and
+Qwen2-VL's M-RoPE), sinusoidal positions, init.
 
 Port of ``repro.models.common``.  Models are plain dictionaries of tensors
 plus functions on them, laid out exactly as the reference's pytrees
@@ -9,6 +10,7 @@ leaf-by-leaf copy.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -20,8 +22,8 @@ DeviceLike = Union[str, torch.device, None]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Field-for-field copy of the reference ``ModelConfig``; ``dtype`` is
-    a torch dtype.  The dense, moe, rwkv and hybrid families run in this
-    port so far; vlm and encdec raise."""
+    a torch dtype.  Every family of the reference runs in this port:
+    dense, moe, rwkv, hybrid, vlm and encdec."""
     name: str
     arch_kind: str                   # dense | moe | hybrid | rwkv | encdec | vlm
     n_layers: int
@@ -107,6 +109,45 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (..., S, H, hd); positions:
+    (..., S, 3), the (temporal, height, width) position ids; sections:
+    how many rotary frequency *pairs* each of (t, h, w) takes, summing to
+    hd / 2.  Frequency pair f rotates by the position of its section's
+    stream, so with three equal streams this is ``apply_rope`` bit for
+    bit."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"hd / 2 = {hd // 2}")
+    freqs = rope_freqs(hd, theta, x.device)                # (hd/2,)
+    sec_ids = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))           # (hd/2,)
+    pos = positions.float()[..., sec_ids]                  # (..., S, hd/2)
+    angles = (pos * freqs)[..., None, :]                   # (..., S, 1, hd/2)
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int, start: int = 0,
+                         device: DeviceLike = None) -> torch.Tensor:
+    """(length, dim) float32 embeddings of positions start .. start +
+    length - 1: sine on the even columns, cosine on the odd ones."""
+    pos = torch.arange(start, start + length, dtype=torch.float32,
+                       device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device)
+                    * (-math.log(10000.0) / dim))
+    pe = torch.zeros((length, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,

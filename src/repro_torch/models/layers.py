@@ -1,20 +1,22 @@
-"""Attention (GQA / RoPE / sliding window / KV cache), the SwiGLU MLP
-and the top-k mixture of experts.
+"""Attention (GQA / RoPE / M-RoPE / sliding window / KV cache), cross-
+attention, the SwiGLU and GELU MLPs and the top-k mixture of experts.
 
-Port of the dense- and moe-path layers of ``repro.models.layers``.
-Activations follow the reference's (batch, seq, ...) layout and its
-rounding points.  Decode takes a KV cache and a scalar or per-slot
-``(B,)`` cache index and writes the new keys/values into the cache
-tensors in place (the reference returns updated copies; the cache is the
-caller's to own here).  A one-token decode reads its cache as a ring
-buffer, which is what local attention keeps (see ``attention``).
+Port of ``repro.models.layers``.  Activations follow the reference's
+(batch, seq, ...) layout and its rounding points.  Decode takes a KV
+cache and a scalar or per-slot ``(B,)`` cache index and writes the new
+keys/values into the cache tensors in place (the reference returns
+updated copies; the cache is the caller's to own here).  A one-token
+decode reads its cache as a ring buffer, which is what local attention
+keeps (see ``attention``).
 
-Without a cache (prefill, ``forward``) attention takes, under
-``cfg.use_kernels``, the hand-written flash-attention kernel
-(``kernels.flash_attention.attention_op``) at any length; otherwise the
-reference's einsum path, chunked from ``CHUNKED_ATTN_THRESHOLD`` on.
-The experts' products are plain ``einsum``s, as in the reference, which
-has no kernel for them.
+Without a cache (prefill, ``forward``, the whisper encoder and every
+cross-attention) attention takes, under ``cfg.use_kernels``, the
+hand-written flash-attention kernel
+(``kernels.flash_attention.attention_op``) at any length, causal or not;
+otherwise the reference's einsum path, chunked from
+``CHUNKED_ATTN_THRESHOLD`` on when causal.  The experts' products and the
+GELU MLP are plain products, as in the reference, which has no kernel
+for them.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 from repro_torch.kernels.flash_attention import attention_op
 from repro_torch.kernels.fused_mlp import mlp_block
 
-from .common import ModelConfig, Params, apply_rope, dense_init
+from .common import ModelConfig, Params, apply_mrope, apply_rope, dense_init
 
 #: sequence length from which the reference's no-cache path switches to
 #: chunked attention (``repro.models.layers.CHUNKED_ATTN_THRESHOLD``)
@@ -156,8 +158,11 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
               window: Optional[int] = None,
               cache: Optional[Tuple[torch.Tensor, ...]] = None,
               cache_index: Optional[Index] = None,
+              causal: bool = True,
+              mrope_positions: Optional[torch.Tensor] = None,
+              rope: bool = True,
               ) -> torch.Tensor:
-    """Causal self-attention.
+    """Self-attention.
 
     window: attend only to keys within ``window`` positions (None means
     unbounded).  cache: (k, v) of shape (B, T_max, Hkv, hd), or (k, v,
@@ -165,6 +170,11 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
     cache_index: first free slot — a scalar when every batch row fills in
     lockstep, or a per-row (B,) vector when rows advance independently
     (continuous batching: each decode slot carries its own cursor).
+    causal: without a cache, False admits every key (the whisper
+    encoder); a cache is always read causally, as in the reference.
+    mrope_positions: (B, S, 3) M-RoPE position ids, which replace
+    ``positions`` for the rotation (qwen2-vl's forward); rope=False
+    skips the rotation (whisper).
 
     One token per row (S = 1) without ``kv_quant`` is written at
     ``cache_index mod T_max``, and the mask reads each slot at the real
@@ -176,18 +186,25 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
     once it wraps (``ROADMAP.md``, Queue 3).
 
     Without a cache, ``cfg.use_kernels`` sends q, k and v to the flash
-    kernel at any S; otherwise S >= ``CHUNKED_ATTN_THRESHOLD`` takes
-    ``_sdpa_chunked`` (window 0 on global layers), as in the reference.
-    Decode stays on ``_sdpa`` either way: its query sits at a per-slot
-    position against a per-slot cache fill, and the kernel, like the
-    reference's, counts query rows from 0.
+    kernel at any S, with ``causal`` as given; otherwise a causal
+    S >= ``CHUNKED_ATTN_THRESHOLD`` takes ``_sdpa_chunked`` (window 0 on
+    global layers), as in the reference.  Decode stays on ``_sdpa``
+    either way: its query sits at a per-slot position against a per-slot
+    cache fill, and the kernel, like the reference's, counts query rows
+    from 0.
     """
     B, S, _ = x.shape
     if positions.ndim == 1:
         positions = positions[None, :].expand(B, S)
     q, k, v = _qkv(p, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if rope and mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, cfg.rope_theta,
+                        cfg.mrope_sections)
+        k = apply_mrope(k, mrope_positions, cfg.rope_theta,
+                        cfg.mrope_sections)
+    elif rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is not None:
         per_slot = (isinstance(cache_index, torch.Tensor)
@@ -232,19 +249,45 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
         if cfg.use_kernels:
             # the flash kernel: q tile, running max and sum and the fp32
             # accumulator stay on chip across the kv sweep
-            out = attention_op(q, k, v, causal=True, window=window or 0)
+            out = attention_op(q, k, v, causal=causal, window=window or 0)
             return out.reshape(B, S, -1) @ p["wo"]
-        if S >= CHUNKED_ATTN_THRESHOLD:
+        if causal and S >= CHUNKED_ATTN_THRESHOLD:
             out = _sdpa_chunked(q, k, v, cfg, window or 0)
             return out.reshape(B, S, -1) @ p["wo"]
         i = torch.arange(S, device=x.device)[:, None]
         j = torch.arange(S, device=x.device)[None, :]
-        mask = j <= i
+        mask = (j <= i if causal
+                else torch.ones((S, S), dtype=torch.bool, device=x.device))
         if window is not None:
             mask = mask & (i - j < window)
         mask = mask[None].expand(B, S, S)
 
     out = _sdpa(q, k, v, mask, cfg)
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+def init_cross_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    return init_attention(gen, cfg)
+
+
+def cross_attention(p: Params, x: torch.Tensor, enc: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Decoder cross-attention onto the encoder's output: x (B, S, D),
+    enc (B, T, D); no mask, no RoPE, no bias, no cache.  The reference
+    computes it with plain ``_sdpa``; under ``cfg.use_kernels`` the port
+    sends it to the flash kernel, not causal, as every attention without
+    a cache (S = 1 in decode, T = ``cfg.enc_frames``)."""
+    B, S, _ = x.shape
+    T = enc.shape[1]
+    hd = cfg.hd
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
+    k = (enc @ p["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
+    v = (enc @ p["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+    if cfg.use_kernels:
+        out = attention_op(q, k, v, causal=False)
+    else:
+        mask = torch.ones((B, S, T), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, k, v, mask, cfg)
     return out.reshape(B, S, -1) @ p["wo"]
 
 
@@ -270,6 +313,26 @@ def swiglu(p: Params, x: torch.Tensor,
     u = x @ p["w_up"]
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
     return h @ p["w_down"]
+
+
+def init_gelu_mlp(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    zeros = dict(dtype=cfg.dtype, device=gen.device)
+    return {
+        "w_in": dense_init(gen, (cfg.d_model, cfg.d_ff), cfg.dtype),
+        "b_in": torch.zeros((cfg.d_ff,), **zeros),
+        "w_out": dense_init(gen, (cfg.d_ff, cfg.d_model), cfg.dtype),
+        "b_out": torch.zeros((cfg.d_model,), **zeros),
+    }
+
+
+def gelu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Whisper's MLP, at the reference's rounding points: the products
+    and bias adds in the activation dtype, GELU in float32 in its tanh
+    form (``jax.nn.gelu``'s default ``approximate=True``).  The reference
+    has no kernel for it, so neither has the port."""
+    h = x @ p["w_in"] + p["b_in"]
+    h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ p["w_out"] + p["b_out"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,24 +1,31 @@
-"""LM assembly for the dense, MoE, RWKV and hybrid families: init,
-forward, decode cache, decode.
+"""LM assembly for every family of the model zoo: init, forward, decode
+cache, decode; the whisper encoder-decoder's encoder, forward and decode.
 
-Port of the dense, ``moe``, ``rwkv`` and ``hybrid`` paths of
-``repro.models.transformer``.  Uniform-layer families (dense, moe, rwkv)
-stack per-layer parameters on a leading axis as in the reference; the hybrid
-(RecurrentGemma) family keeps a list of per-layer dictionaries, since its
-layers differ.  The port walks the layers in a Python loop (PyTorch runs
-eagerly, so there is no ``scan`` and no remat).  A MoE layer differs
-from a dense one only in its MLP (``layers.moe_ffn``); ``forward``
-returns the mean of its layers' load-balance losses.  The vlm and encdec
-families raise ``NotImplementedError``.
+Port of ``repro.models.transformer``.  Uniform-layer families (dense,
+moe, rwkv, vlm) stack per-layer parameters on a leading axis as in the
+reference, and whisper stacks its encoder and decoder layers apart; the
+hybrid (RecurrentGemma) family keeps a list of per-layer dictionaries,
+since its layers differ.  The port walks the layers in a Python loop
+(PyTorch runs eagerly, so there is no ``scan`` and no remat).  A MoE
+layer differs from a dense one only in its MLP (``layers.moe_ffn``);
+``forward`` returns the mean of its layers' load-balance losses.  A vlm
+(qwen2-vl) forward prefixes the text with projected patch embeddings and
+rotates by M-RoPE; its decode is text-only with plain RoPE, as the
+reference's.  The vision and audio frontends are stubs in the reference
+too: patch and frame embeddings are inputs.
 
 Entry points:
     init_model(cfg, seed, device)                    -> params
-    forward(params, cfg, tokens)                     -> (logits, aux)
+    forward(params, cfg, tokens, patch_embeds=None)  -> (logits, aux)
     init_cache(cfg, batch, max_len, device)          -> cache
     decode_step(params, cfg, tokens, cache, index)   -> (logits, cache)
+    encode_frames(params, cfg, frames)               -> enc      (encdec)
+    whisper_forward(params, cfg, frames, tokens)     -> logits   (encdec)
+    whisper_decode_step(params, cfg, tokens, cache, index)
+                                                     -> (logits, cache)
 
-``decode_step`` and ``zero_cache_slot`` update the cache tensors in place
-and return the same dictionary.
+``decode_step``, ``whisper_decode_step`` and ``zero_cache_slot`` update
+the cache tensors in place and return the same dictionary.
 """
 from __future__ import annotations
 
@@ -27,9 +34,10 @@ from typing import Any, Callable, List, Optional, Tuple, Union
 import torch
 
 from .common import (DeviceLike, ModelConfig, Params, dense_init,
-                     resolve_device, rms_norm)
-from .layers import (Index, attention, init_attention, init_moe,
-                     init_swiglu, moe_ffn, swiglu)
+                     resolve_device, rms_norm, sinusoidal_positions)
+from .layers import (Index, attention, cross_attention, gelu_mlp,
+                     init_attention, init_cross_attention, init_gelu_mlp,
+                     init_moe, init_swiglu, moe_ffn, swiglu)
 from .rglru import init_recurrent_block, recurrent_block
 from .rwkv6 import HEAD_SIZE, channel_mix, init_channel_mix, init_time_mix, \
     time_mix
@@ -40,13 +48,13 @@ BIG_WINDOW = 1 << 30   # "global" attention sentinel
 Aux = Union[torch.Tensor, float]
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    """Dense, moe, rwkv and hybrid run; vlm and encdec are not ported
-    yet."""
-    if cfg.arch_kind not in ("dense", "moe", "rwkv", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: arch_kind={cfg.arch_kind!r} is not ported to "
-            "repro_torch yet (ROADMAP.md)")
+def _require_decoder(cfg: ModelConfig) -> None:
+    """``forward`` and ``decode_step`` take the decoder-only families;
+    the encoder-decoder runs through its own entry points."""
+    if cfg.arch_kind == "encdec":
+        raise ValueError(
+            f"{cfg.name}: arch_kind='encdec' runs through encode_frames, "
+            "whisper_forward and whisper_decode_step")
 
 
 def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -125,17 +133,22 @@ def _empty_stack(tree, n: int):
     return tree.new_empty((n,) + tuple(tree.shape))
 
 
-def _init_stacked_layers(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """The uniform families' layers, stacked on a leading axis, drawn
-    layer after layer in the reference's order.  Each stacked tensor is
-    allocated once, and each layer's draws are copied into their slice
-    and dropped before the next layer is drawn: the peak holds the
-    weights and one layer's draws, not the weights twice."""
-    layer = _init_decoder_layer(gen, cfg)
-    stacked = _empty_stack(layer, cfg.n_layers)
-    for l in range(cfg.n_layers):
+def _init_stacked_layers(gen: torch.Generator, cfg: ModelConfig,
+                         init_layer: Callable[[torch.Generator, ModelConfig],
+                                              Params] = _init_decoder_layer,
+                         n: Optional[int] = None) -> Params:
+    """``n`` layers (``cfg.n_layers`` by default) drawn by ``init_layer``,
+    stacked on a leading axis, drawn layer after layer in the reference's
+    order.  Each stacked tensor is allocated once, and each layer's draws
+    are copied into their slice and dropped before the next layer is
+    drawn: the peak holds the weights and one layer's draws, not the
+    weights twice."""
+    n = cfg.n_layers if n is None else n
+    layer = init_layer(gen, cfg)
+    stacked = _empty_stack(layer, n)
+    for l in range(n):
         if l:
-            layer = _init_decoder_layer(gen, cfg)
+            layer = init_layer(gen, cfg)
         _copy_leaves(_layer(stacked, l), layer)
         layer = None
     return stacked
@@ -168,9 +181,10 @@ def init_model(cfg: ModelConfig, seed: int = 0,
     from a ``torch.Generator`` seeded with ``seed``.  (The draws differ
     from ``jax.random``'s; tests carry JAX parameters across with
     ``convert.params_from_jax`` instead.)"""
-    _require_ported(cfg)
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
+    if cfg.arch_kind == "encdec":
+        return _init_whisper(gen, cfg)
     params: Params = {
         "embed": dense_init(gen, (cfg.padded_vocab, cfg.d_model), cfg.dtype,
                             scale=0.02),
@@ -180,6 +194,9 @@ def init_model(cfg: ModelConfig, seed: int = 0,
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab),
                                        cfg.dtype)
+    if cfg.arch_kind == "vlm":
+        params["patch_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model),
+                                          cfg.dtype)
     if cfg.arch_kind == "hybrid":
         # heterogeneous layers: a list, as in the reference
         params["layers"] = [_init_hybrid_layer(gen, cfg, l)
@@ -196,10 +213,12 @@ def init_model(cfg: ModelConfig, seed: int = 0,
 def _uniform_layer(cfg: ModelConfig, x: torch.Tensor, layer_p: Params,
                    window: Optional[int], positions: torch.Tensor,
                    cache: Optional[Params] = None,
-                   cache_index: Optional[Index] = None
+                   cache_index: Optional[Index] = None,
+                   mrope_positions: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Aux]:
     """One pre-norm decoder layer: (x, aux), aux the MoE load-balance
-    loss (0.0 without experts); the cache (if any) updates in place."""
+    loss (0.0 without experts); the cache (if any) updates in place.
+    ``mrope_positions`` (vlm forward) rotates q and k by M-RoPE."""
     h = rms_norm(x, layer_p["ln1"], cfg.norm_eps)
     if cfg.arch_kind == "rwkv":
         o, _ = time_mix(layer_p["tmix"], h, cfg,
@@ -217,7 +236,8 @@ def _uniform_layer(cfg: ModelConfig, x: torch.Tensor, layer_p: Params,
     else:
         c_in = None
     x = x + attention(layer_p["attn"], h, cfg, positions, window=window,
-                      cache=c_in, cache_index=cache_index)
+                      cache=c_in, cache_index=cache_index,
+                      mrope_positions=mrope_positions)
     h2 = rms_norm(x, layer_p["ln2"], cfg.norm_eps)
     if cfg.n_experts:
         o2, aux = moe_ffn(layer_p["moe"], h2, cfg)
@@ -249,21 +269,24 @@ def _hybrid_layer(cfg: ModelConfig, x: torch.Tensor, layer_p: Params,
 
 def _layer_fns(params: Params, cfg: ModelConfig
                ) -> List[Callable[..., Tuple[torch.Tensor, Aux]]]:
-    """One callable per layer: (x, positions, cache, index) -> (x, aux),
-    aux the layer's MoE load-balance loss (0.0 without experts).  A
-    global layer passes no window without a cache (as the reference's
-    static windows do, so a long prefill takes window 0 in the chunked
-    path or the flash kernel) and ``BIG_WINDOW`` with one."""
+    """One callable per layer: (x, positions, cache, index, mrope=None)
+    -> (x, aux), aux the layer's MoE load-balance loss (0.0 without
+    experts), ``mrope`` the vlm forward's M-RoPE position ids.  A global
+    layer passes no window without a cache (as the reference's static
+    windows do, so a long prefill takes window 0 in the chunked path or
+    the flash kernel) and ``BIG_WINDOW`` with one."""
     if cfg.arch_kind == "hybrid":
-        return [lambda x, pos, c, i, lp=lp: (
+        return [lambda x, pos, c, i, mrope=None, lp=lp: (
                     _hybrid_layer(cfg, x, lp, pos, c, i), 0.0)
                 for lp in params["layers"]]
     fns = []
     for l, win in enumerate(layer_windows(cfg)):
         lp = _layer(params["layers"], l)
-        fns.append(lambda x, pos, c, i, lp=lp, win=win: _uniform_layer(
-            cfg, x, lp, None if (c is None and win >= BIG_WINDOW) else win,
-            pos, c, i))
+        fns.append(lambda x, pos, c, i, mrope=None, lp=lp, win=win:
+                   _uniform_layer(
+                       cfg, x, lp,
+                       None if (c is None and win >= BIG_WINDOW) else win,
+                       pos, c, i, mrope))
     return fns
 
 
@@ -281,19 +304,55 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            patch_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits, aux_loss): the mean over
     layers of the MoE load-balance loss, as in the reference (0 for the
-    families without experts)."""
-    _require_ported(cfg)
+    families without experts).
+
+    vlm: ``patch_embeds`` (B, n_patches, D), cast to ``cfg.dtype`` and
+    projected by ``patch_proj``, come before the text; every layer
+    rotates by M-RoPE (``_vlm_positions``), and the logits are those of
+    the last S_text positions.  The reference asserts the patches are
+    given; the port raises."""
+    _require_decoder(cfg)
+    B, S_text = tokens.shape
     x = params["embed"][tokens]
+    mrope = None
+    if cfg.arch_kind == "vlm":
+        want = (B, cfg.n_patches, cfg.d_model)
+        got = None if patch_embeds is None else tuple(patch_embeds.shape)
+        if got != want:
+            raise ValueError(f"{cfg.name}: forward takes patch_embeds of "
+                             f"shape {want}, got {got}")
+        pe = patch_embeds.to(cfg.dtype) @ params["patch_proj"]
+        x = torch.cat([pe, x], dim=1)
+        mrope = _vlm_positions(cfg, B, S_text, x.device)
     positions = torch.arange(x.shape[1], device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for fn in _layer_fns(params, cfg):
-        x, aux = fn(x, positions, None, None)
+        x, aux = fn(x, positions, None, None, mrope)
         aux_total = aux_total + aux
-    return _logits(params, cfg, x), aux_total / max(1, cfg.n_layers)
+    # the LM head on the text positions only (the reference cuts its
+    # logits back to them; each position's logits are its own)
+    return (_logits(params, cfg, x[:, -S_text:]),
+            aux_total / max(1, cfg.n_layers))
+
+
+def _vlm_positions(cfg: ModelConfig, B: int, S_text: int,
+                   device: DeviceLike = None) -> torch.Tensor:
+    """(B, n_patches + S_text, 3) M-RoPE (t, h, w) position ids: the
+    image grid (0, row, column) with side floor(sqrt(P)), then the text
+    run, every stream at side + s."""
+    P = cfg.n_patches
+    side = max(1, int(P ** 0.5))
+    p = torch.arange(P, device=device)
+    img = torch.stack([torch.zeros_like(p), p // side, p % side], dim=-1)
+    tt = side + torch.arange(S_text, device=device)
+    txt = torch.stack([tt, tt, tt], dim=-1)
+    pos = torch.cat([img, txt], dim=0)                    # (P + S, 3)
+    return pos[None].expand(B, P + S_text, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -303,10 +362,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=None, device: DeviceLike = None) -> Params:
     """The decode cache in the reference's layout: KV (layers first) for
-    dense and moe; (last token, state) per mixer for rwkv; per-layer
+    dense, moe, vlm and encdec (the decoder's self-attention; the caller
+    adds the encoded frames as ``"enc"``, as ``decode_input_specs`` lays
+    the cache out); (last token, state) per mixer for rwkv; per-layer
     dictionaries with batch first for hybrid, whose local attention keeps
     a ring buffer of min(max_len, local_window) slots."""
-    _require_ported(cfg)
     dtype = dtype or cfg.dtype
     dev = resolve_device(device)
 
@@ -347,7 +407,6 @@ def zero_cache_slot(cfg: ModelConfig, cache: Params, slot: int) -> Params:
     request must not attend to the previous occupant's keys/values (or
     carry its recurrent state).  The hybrid family keeps batch first in
     each layer's arrays; every other family stacks layers first."""
-    _require_ported(cfg)
     for a in _leaves(cache):
         if cfg.arch_kind == "hybrid":
             a[slot] = 0
@@ -361,8 +420,11 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """One decode step.  tokens: (B, 1); index: the cache fill cursor — an
     int (or 0-d tensor) when all rows decode in lockstep, or a per-slot
     (B,) tensor when a continuous-batching engine advances each slot
-    independently.  The cache is written in place and returned."""
-    _require_ported(cfg)
+    independently.  The cache is written in place and returned.
+
+    vlm: text only, with plain RoPE at the cache index, as the
+    reference's decode (it takes no patches and passes no M-RoPE ids)."""
+    _require_decoder(cfg)
     B = tokens.shape[0]
     x = params["embed"][tokens]
     if isinstance(index, torch.Tensor) and index.ndim == 1:
@@ -377,4 +439,128 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         else [_layer(cache, l) for l in range(cfg.n_layers)])
     for fn, c in zip(_layer_fns(params, cfg), layer_caches):
         x, _ = fn(x, positions, c, index)
+    return _logits(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
+# whisper-style encoder-decoder (the conv frontend is a stub, as in the
+# reference: frame embeddings are the input)
+# ---------------------------------------------------------------------------
+
+def _init_whisper_enc_layer(gen: torch.Generator, cfg: ModelConfig
+                            ) -> Params:
+    zeros = dict(dtype=torch.float32, device=gen.device)
+    return {"ln1": torch.zeros((cfg.d_model,), **zeros),
+            "attn": init_attention(gen, cfg),
+            "ln2": torch.zeros((cfg.d_model,), **zeros),
+            "mlp": init_gelu_mlp(gen, cfg)}
+
+
+def _init_whisper_dec_layer(gen: torch.Generator, cfg: ModelConfig
+                            ) -> Params:
+    zeros = dict(dtype=torch.float32, device=gen.device)
+    return {"ln1": torch.zeros((cfg.d_model,), **zeros),
+            "attn": init_attention(gen, cfg),
+            "ln_x": torch.zeros((cfg.d_model,), **zeros),
+            "xattn": init_cross_attention(gen, cfg),
+            "ln2": torch.zeros((cfg.d_model,), **zeros),
+            "mlp": init_gelu_mlp(gen, cfg)}
+
+
+def _init_whisper(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """The reference's tree: ``embed``, stacked ``enc_layers`` and
+    ``dec_layers`` (each stacked tensor allocated once), ``ln_enc`` and
+    ``ln_f``; the LM head is tied to ``embed``."""
+    zeros = dict(dtype=torch.float32, device=gen.device)
+    return {
+        "embed": dense_init(gen, (cfg.padded_vocab, cfg.d_model), cfg.dtype,
+                            scale=0.02),
+        "enc_layers": _init_stacked_layers(gen, cfg, _init_whisper_enc_layer,
+                                           cfg.n_enc_layers),
+        "dec_layers": _init_stacked_layers(gen, cfg, _init_whisper_dec_layer,
+                                           cfg.n_layers),
+        "ln_enc": torch.zeros((cfg.d_model,), **zeros),
+        "ln_f": torch.zeros((cfg.d_model,), **zeros),
+    }
+
+
+def _enc_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
+               positions: torch.Tensor) -> torch.Tensor:
+    """One encoder layer: self-attention over every frame (not causal, no
+    RoPE), then the GELU MLP."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + attention(lp["attn"], h, cfg, positions, causal=False,
+                      rope=False)
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + gelu_mlp(lp["mlp"], h2)
+
+
+def _dec_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
+               positions: torch.Tensor, enc: torch.Tensor,
+               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               cache_index: Optional[int] = None) -> torch.Tensor:
+    """One decoder layer: causal self-attention without RoPE (through the
+    KV cache, in place, when one is given), cross-attention onto ``enc``,
+    then the GELU MLP."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + attention(lp["attn"], h, cfg, positions, rope=False,
+                      cache=cache, cache_index=cache_index)
+    hx = rms_norm(x, lp["ln_x"], cfg.norm_eps)
+    x = x + cross_attention(lp["xattn"], hx, enc, cfg)
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + gelu_mlp(lp["mlp"], h2)
+
+
+def encode_frames(params: Params, cfg: ModelConfig, frames: torch.Tensor
+                  ) -> torch.Tensor:
+    """frames: (B, T_enc, D) precomputed embeddings (the stub frontend),
+    cast to ``cfg.dtype`` before the sinusoids are added -> (B, T_enc, D)
+    after ``ln_enc``."""
+    T = frames.shape[1]
+    x = frames.to(cfg.dtype) + sinusoidal_positions(
+        T, cfg.d_model, device=frames.device).to(cfg.dtype)
+    positions = torch.arange(T, device=x.device)
+    for l in range(cfg.n_enc_layers):
+        x = _enc_layer(cfg, x, _layer(params["enc_layers"], l), positions)
+    return rms_norm(x, params["ln_enc"], cfg.norm_eps)
+
+
+def whisper_forward(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+                    tokens: torch.Tensor) -> torch.Tensor:
+    """Encoder over ``frames``, then the decoder over ``tokens`` (B, S)
+    with position s's sinusoid added at s -> (B, S, padded_vocab) logits,
+    tied to ``embed``, the padded rows masked."""
+    enc = encode_frames(params, cfg, frames)
+    S = tokens.shape[1]
+    x = params["embed"][tokens] + sinusoidal_positions(
+        S, cfg.d_model, device=tokens.device).to(cfg.dtype)
+    positions = torch.arange(S, device=x.device)
+    for l in range(cfg.n_layers):
+        x = _dec_layer(cfg, x, _layer(params["dec_layers"], l), positions,
+                       enc)
+    return _logits(params, cfg, x)
+
+
+def whisper_decode_step(params: Params, cfg: ModelConfig,
+                        tokens: torch.Tensor, cache: Params, index: Index
+                        ) -> Tuple[torch.Tensor, Params]:
+    """One decoder step.  tokens: (B, 1); cache: {"enc": (B, T_enc, D)
+    encoded frames, "k"/"v": the self-attention cache of ``init_cache``},
+    written in place and returned; index: the fill cursor, one scalar for
+    every row.
+
+    The embedding of position ``index`` is added, as ``whisper_forward``
+    adds position s's at s.  The reference adds position 0's at every
+    index (``sinusoidal_positions(1, D)``), so its decode departs from its
+    forward from the second token on; the port's agrees with both
+    forwards at every position."""
+    index = int(index)
+    B = tokens.shape[0]
+    x = params["embed"][tokens] + sinusoidal_positions(
+        1, cfg.d_model, start=index, device=tokens.device).to(cfg.dtype)
+    positions = torch.full((B, 1), index, dtype=torch.long,
+                           device=x.device)
+    for l in range(cfg.n_layers):
+        x = _dec_layer(cfg, x, _layer(params["dec_layers"], l), positions,
+                       cache["enc"], (cache["k"][l], cache["v"][l]), index)
     return _logits(params, cfg, x), cache

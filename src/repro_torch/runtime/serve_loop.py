@@ -8,8 +8,12 @@ RWKV and RG-LRU; the engine only calls ``init_cache``, ``decode_step`` and
 is refilled with the next request, whose prompt is prefilled in the
 decode slot token by token.  Per-slot state lives in host numpy arrays;
 the device runs one decode step per tick over every slot, idle ones
-included.  The planner hooks (``plan_request``, ``decode_graph``,
-``Lane``, ``AdmissionScheduler``) are not ported yet (``ROADMAP.md``).
+included.  A vlm (qwen2-vl-2b) serves text only, as the reference's
+decode takes no patches.  The encoder-decoder (whisper-medium) does not
+serve: the reference's ``ServeEngine`` has no enc-dec path either
+(``require_servable``).  The planner hooks (``plan_request``,
+``decode_graph``, ``Lane``, ``AdmissionScheduler``) are not ported yet
+(``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -37,6 +41,17 @@ class Request:
     done: bool = False
 
 
+def require_servable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for the encoder-decoder family, which
+    the reference's ``ServeEngine`` does not serve (it has no enc-dec
+    path: no encoded frames per slot, no ``whisper_decode_step``)."""
+    if cfg.arch_kind == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the reference's ServeEngine has no enc-dec path, "
+            "so neither has the port's; run encode_frames, whisper_forward "
+            "and whisper_decode_step instead")
+
+
 class ServeEngine:
     """Continuous-batching engine over a fixed slot pool, on ``device``
     (``cuda`` unless the caller passes another).  ``params`` must already
@@ -44,6 +59,7 @@ class ServeEngine:
 
     def __init__(self, params, cfg: ModelConfig, batch_slots: int,
                  max_len: int, device: DeviceLike = None):
+        require_servable(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params lie on {params['embed'].device}, the "

@@ -579,7 +579,14 @@ _FLASH_SHAPES = [
     (1, 257, 129, 4, 2, 128, False, 0),       # not causal, T < S
     (1, 130, 130, 4, 4, 256, False, 40),      # windowed, not causal
     (1, 600, 200, 4, 2, 256, True, 100),      # rows with no admitted key
-    (2, 129, 129, 8, 4, 256, True, 0)]        # one row past a query tile
+    (2, 129, 129, 8, 4, 256, True, 0),        # one row past a query tile
+    # qwen2-vl-2b's and whisper-medium's forwards and whisper's decode
+    (2, 1024, 1024, 12, 2, 128, True, 0),     # vlm prefill, GQA 12/2
+    (4, 1500, 1500, 16, 16, 64, False, 0),    # whisper encoder, T ragged
+    (4, 64, 64, 16, 16, 64, True, 0),         # whisper decoder self-attn
+    (4, 64, 1500, 16, 16, 64, False, 0),      # whisper cross-attention
+    (4, 1, 1500, 16, 16, 64, False, 0)]       # cross-attention in decode:
+                                              # one query row in a tile
 
 
 def _flash_inputs(B, S, T, H, Hkv, hd, dtype, seed):
@@ -615,7 +622,8 @@ def test_flash_attention_kernel_matches_plain(B, S, T, H, Hkv, hd, causal,
 
 @pytest.mark.parametrize("B,S,T,H,Hkv,hd,causal,window", [
     (1, 1024, 1024, 8, 4, 256, True, 0), (2, 333, 500, 10, 1, 256, True, 77),
-    (1, 600, 200, 4, 2, 256, True, 100), (2, 24, 24, 4, 2, 16, True, 8)])
+    (1, 600, 200, 4, 2, 256, True, 100), (2, 24, 24, 4, 2, 16, True, 8),
+    (4, 1, 1500, 16, 16, 64, False, 0), (4, 1500, 1500, 16, 16, 64, False, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_is_bitwise_repeatable(B, S, T, H, Hkv, hd, causal,
                                                window, dtype):
@@ -726,3 +734,60 @@ def test_gemma3_takes_the_flash_kernel_on_the_card():
         assert flash_attention.launches == before
     torch.testing.assert_close(torch.stack(steps, 1), full, atol=1e-4,
                                rtol=1e-4)
+
+
+def test_vlm_and_whisper_take_the_flash_kernel_on_the_card():
+    """qwen2-vl-2b and whisper-medium smoke in float32 on the card, kernels
+    on: the vlm forward (patches + text) launches flash and ``fused_mlp``
+    once a layer and agrees with the plain path; whisper's forward
+    launches flash n_enc_layers + 2 n_layers times, its decode step
+    n_layers times (cross-attention, S = 1), and decode agrees with
+    forward at every position."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import (encode_frames, forward, init_cache,
+                                    init_model, whisper_decode_step,
+                                    whisper_forward)
+    _need_card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    cfg = dataclasses.replace(get_config("qwen2-vl-2b", smoke=True),
+                              dtype=torch.float32, use_kernels=True)
+    params = init_model(cfg, seed=1, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (2, 12), device="cuda", generator=gen)
+    patches = torch.randn((2, cfg.n_patches, cfg.d_model), device="cuda",
+                          generator=gen)
+    with torch.inference_mode():
+        f0, m0 = flash_attention.launches, fused_mlp.launches
+        full, _ = forward(params, cfg, toks, patch_embeds=patches)
+        assert flash_attention.launches == f0 + cfg.n_layers
+        assert fused_mlp.launches == m0 + cfg.n_layers
+        ref, _ = forward(params, dataclasses.replace(cfg, use_kernels=False),
+                         toks, patch_embeds=patches)
+    torch.testing.assert_close(full, ref, atol=1e-4, rtol=1e-4)
+
+    cfg = dataclasses.replace(get_config("whisper-medium", smoke=True),
+                              dtype=torch.float32, use_kernels=True)
+    params = init_model(cfg, seed=1, device="cuda")
+    frames = torch.randn((2, cfg.enc_frames, cfg.d_model), device="cuda",
+                         generator=gen)
+    toks = toks[:, :6]
+    with torch.inference_mode():
+        f0 = flash_attention.launches
+        full = whisper_forward(params, cfg, frames, toks)
+        assert flash_attention.launches == (f0 + cfg.n_enc_layers
+                                            + 2 * cfg.n_layers)
+        ref = whisper_forward(params, dataclasses.replace(
+            cfg, use_kernels=False), frames, toks)
+        torch.testing.assert_close(full, ref, atol=1e-4, rtol=1e-4)
+        cache = dict(init_cache(cfg, 2, 8, device="cuda"),
+                     enc=encode_frames(params, cfg, frames))
+        for i in range(toks.shape[1]):
+            f0 = flash_attention.launches
+            lg, cache = whisper_decode_step(params, cfg, toks[:, i:i + 1],
+                                            cache, i)
+            assert flash_attention.launches == f0 + cfg.n_layers
+            torch.testing.assert_close(lg[:, 0], full[:, i], atol=1e-4,
+                                       rtol=1e-4)

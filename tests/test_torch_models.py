@@ -151,15 +151,6 @@ def test_init_model_draws_match_stacked_construction(arch):
                                * 96 ** -0.5).to(dtype))
 
 
-@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "whisper-medium"])
-def test_vlm_and_encdec_are_not_ported_yet(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        init_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        forward({}, cfg, torch.zeros((1, 4), dtype=torch.long))
-
-
 def test_init_model_layout_matches_reference():
     jcfg, tcfg = _cfgs()
     jp = jax_init_model(jax.random.PRNGKey(0), jcfg)
