@@ -109,7 +109,31 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    ring-buffer wrap, gemma3-4b past its local window, the MoE configs
    with capacity for every token, whisper's decode against
    ``whisper_forward``, qwen2-vl's text-only decode against the dense
-   forward of the same weights).
+   forward of the same weights);
+8. plan the LM zoo (``plan_lm``): the 29 graphs of
+   ``repro_torch.configs.lm_graphs`` (a decode step and the prefill
+   buckets of each of the ten archs, at their published configs) from
+   cold caches with the torch engine on ``cuda`` (every pricing call with
+   device rows is one CUDA ``price_rows`` launch) and with the numpy
+   engine, each plan against ``tests/golden/lm_plans.json`` and the other
+   engine's, every torch plan through ``verify_plan`` with no finding,
+   and ``repro_torch.launch.lint --strict`` over a ``PlanStore`` of them;
+9. planned serving (``serve_planned``): ``repro_torch.launch.serve
+   --use-kernels`` on qwen2.5-3b at full width without a plan, then
+   twice with ``--plan-store``: the first run plans (the planner invoked
+   once; its pricing calls counted, and ``price_rows`` launched once for
+   each with device rows), the second reads the store (no planner
+   invocation, no pricing call, no launch); the three runs' tokens are
+   the same bits, and each launches ``fused_mlp`` once a layer and tick;
+10. tenants (``tenants``): ``repro_torch.launch.serve --use-kernels
+   --tenants qwen2.5-3b:2:1,rwkv6-1.6b:1 --plan-store`` at full width:
+   the multi-tenant plan of the torch engine on ``cuda`` against the
+   numpy engine's, reloaded warm from the store with no planner
+   invocation; then the ``AdmissionScheduler`` in each of its three
+   modes on fresh engines of the same weights, timed, each run's
+   ``fused_mlp`` and ``wkv6`` launches checked, and every request's
+   tokens, in the launcher's run and in every mode, bit-equal to the
+   same request served alone on an engine of its tenant.
 
 Any failure raises and exits non-zero.  The second-last line is the JSON
 kernel table; the last line is the device record.  The full results go
@@ -188,6 +212,7 @@ PLAN_RTOL = 1e-6
 SIM_RTOL = 1e-6
 SIM_RTOL_BIG = 1e-9
 GOLDEN = ROOT / "tests" / "golden" / "xrbench_plans.json"
+LM_GOLDEN = ROOT / "tests" / "golden" / "lm_plans.json"
 
 #: the recurrences' kernel vs plain, the reference suites' tolerances
 #: (tests/test_kernels.py): WKV6's step regime differs in summation order
@@ -2532,6 +2557,355 @@ def _small_zoo():
     return out
 
 
+def _tree_differs(got, want, path: str = "plan"):
+    """First difference of two JSON-like trees: structure and non-floats
+    exact, floats within ``PLAN_RTOL``; None when they agree."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            return f"{path}: keys differ"
+        for k in want:
+            d = _tree_differs(got[k], want[k], f"{path}.{k}")
+            if d:
+                return d
+        return None
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            return f"{path}: lengths differ"
+        for i, (g, w) in enumerate(zip(got, want)):
+            d = _tree_differs(g, w, f"{path}[{i}]")
+            if d:
+                return d
+        return None
+    if isinstance(want, float):
+        if abs(got - want) > PLAN_RTOL * max(abs(got), abs(want)):
+            return f"{path}: {got} != {want}"
+        return None
+    return None if got == want else f"{path}: {got!r} != {want!r}"
+
+
+@contextlib.contextmanager
+def _pricing_calls():
+    """Count the torch engine's pricing calls and the rows of them that
+    reach the kernel (a depth-1 candidate is priced on the host and never
+    does); the ``price_rows`` launch count is zeroed on entry."""
+    from repro_torch.core import pipeline_model_torch as pmt
+    from repro_torch.kernels import price_rows as kpr
+    real = pmt.price_rows
+    seen = {"calls": 0, "calls_with_device_rows": 0, "device_rows": 0}
+
+    def counting(rows, device=None):
+        n = sum(r.host_cost is None for r in rows)
+        seen["calls"] += 1
+        seen["calls_with_device_rows"] += n > 0
+        seen["device_rows"] += n
+        return real(rows, device=device)
+
+    kpr.price_rows.launches = 0
+    pmt.price_rows = counting
+    try:
+        yield seen
+    finally:
+        pmt.price_rows = real
+        seen["launches"] = kpr.price_rows.launches
+
+
+def _planner_invocations() -> int:
+    from repro_torch.core import get_planner
+    info = get_planner().cache_info()
+    return info.hits + info.misses
+
+
+def _scratch_dir():
+    import tempfile
+    base = ROOT / "chip_scratch"
+    base.mkdir(exist_ok=True)
+    return tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=base)
+
+
+def phase_plan_lm():
+    """Path B: the 29 LM-zoo graphs planned from cold caches by the torch
+    engine on the card (the CUDA ``price_rows``) and by the numpy engine;
+    every plan against ``tests/golden/lm_plans.json`` and the other
+    engine's, every torch plan through ``verify_plan`` with no finding,
+    then ``repro_torch.launch.lint --strict`` over a store of them."""
+    import torch
+    from repro_torch.configs.lm_graphs import lm_plan_requests
+    from repro_torch.core import (PAPER_HW, PlanStore, Topology,
+                                  get_planner, verify_plan)
+    from repro_torch.launch import lint
+    golden = json.loads(LM_GOLDEN.read_text())
+    runs = {}
+    for engine in ("torch", "numpy"):
+        requests = lm_plan_requests(hw=PAPER_HW, topology=Topology.AMP,
+                                    engine=engine,
+                                    device="cuda" if engine == "torch"
+                                    else None)
+        check(len(requests) == 29 and sorted(r.graph.name for r in requests)
+              == sorted(golden), "lm_plan_requests: not the 29 golden graphs")
+        _cold_planner_caches()
+        with _pricing_calls() as seen:
+            t0 = time.perf_counter()
+            plans = {r.graph.name: get_planner().plan(r) for r in requests}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runs[engine] = {"requests": requests, "plans": plans,
+                        "wall_s": wall, **seen}
+        print(f"plan_lm {engine}: 29 graphs in {wall:.3f} s, "
+              f"{seen['calls']} pricing calls, "
+              f"{seen['calls_with_device_rows']} with device rows "
+              f"({seen['device_rows']} rows), {seen['launches']} price_rows "
+              "launches")
+    t, n = runs["torch"], runs["numpy"]
+    check(t["launches"] > 0
+          and t["launches"] == t["calls_with_device_rows"],
+          f"plan_lm: price_rows launched {t['launches']} times for "
+          f"{t['calls_with_device_rows']} calls with device rows")
+    check(n["launches"] == 0, "plan_lm: the numpy engine launched a kernel")
+    findings = 0
+    for name in sorted(golden):
+        snap = _snapshot_plan(t["plans"][name])
+        for other, want in (("numpy engine",
+                             _snapshot_plan(n["plans"][name])),
+                            ("golden file", golden[name])):
+            diff = _plans_differ(snap, want)
+            check(diff is None, f"LM plan of {name}, torch engine on cuda "
+                                f"vs {other}: {diff}")
+        report = verify_plan(t["plans"][name], PAPER_HW, Topology.AMP)
+        check(report.ok and not report.findings, report.summary())
+        findings += len(report.findings)
+    with _scratch_dir() as tmp:
+        store = PlanStore(tmp)
+        for req in t["requests"]:
+            store.save(req, t["plans"][req.graph.name])
+        check(len(store) == 29, f"LM store holds {len(store)} plans")
+        t0 = time.perf_counter()
+        rc = lint.main([tmp, "--strict", "--quiet"])
+        lint_s = time.perf_counter() - t0
+    check(rc == 0, f"lint --strict over the LM store exited {rc}")
+    out = {"graphs": 29, "findings": findings, "lint_rc": rc,
+           "lint_s": lint_s,
+           **{f"{e}_{k}": runs[e][k] for e in runs
+              for k in ("wall_s", "calls", "calls_with_device_rows",
+                        "device_rows", "launches")}}
+    print("plan_lm " + json.dumps(out))
+    return out
+
+
+#: the planned-serving and tenant paths' arch, and the tenants of the
+#: multi-tenant path (``--tenants``)
+PLANNED_ARCH = "qwen2.5-3b"
+TENANTS = "qwen2.5-3b:2:1,rwkv6-1.6b:1"
+
+
+def _free_card():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_planned():
+    """Path A, one engine: ``repro_torch.launch.serve --use-kernels`` at
+    full width without a plan, then twice with ``--plan-store`` from cold
+    planner caches: the first run plans (``plan_source`` planner, the
+    planner invoked), the second reads the store (``store``, no planner
+    invocation, no pricing call, no launch); the three runs' tokens must
+    be the same bits, and each run launch ``fused_mlp`` once a layer and
+    tick."""
+    from repro_torch.launch import serve as serve_cli
+    argv = ["--arch", PLANNED_ARCH, "--use-kernels"]
+    runs = {}
+    with _scratch_dir() as tmp:
+        for label, extra in (("unplanned", []),
+                             ("cold", ["--plan-store", tmp]),
+                             ("warm", ["--plan-store", tmp])):
+            _cold_planner_caches()
+            _zero_counts()
+            with _pricing_calls() as seen:
+                t0 = time.perf_counter()
+                engine, done = serve_cli.main(argv + extra)
+                secs = time.perf_counter() - t0
+            launches = _counts()
+            tokens = sum(len(r.output) for r in done)
+            runs[label] = {
+                "plan_source": engine.plan_source,
+                "planner_invocations": _planner_invocations(),
+                "seconds": secs, "ticks": engine.ticks, "tokens": tokens,
+                "model_launches": launches, **seen,
+                "outputs": {r.rid: r.output for r in done}}
+            if engine.plan is not None:
+                runs[label]["planned_cycles_per_token"] = \
+                    engine.stats()["planned_cycles_per_token"]
+            per_tick = _per_call(engine.cfg)
+            for name, n in per_tick.items():
+                check(launches[name] == n * engine.ticks,
+                      f"serve_planned {label}: {name} launched "
+                      f"{launches[name]} times, expected {n} x "
+                      f"{engine.ticks} ticks")
+            check(len(done) == 6 and tokens == 72,
+                  f"serve_planned {label}: {len(done)} requests, {tokens} "
+                  "tokens")
+            del engine, done
+            _free_card()
+    cold, warm = runs["cold"], runs["warm"]
+    check(runs["unplanned"]["plan_source"] is None
+          and runs["unplanned"]["calls"] == 0, "the unplanned run planned")
+    check(cold["plan_source"] == "planner"
+          and cold["planner_invocations"] == 1 and cold["calls"] > 0,
+          f"serve_planned cold: {cold['plan_source']}, "
+          f"{cold['planner_invocations']} planner invocations, "
+          f"{cold['calls']} pricing calls")
+    check(cold["launches"] == cold["calls_with_device_rows"],
+          f"serve_planned cold: {cold['launches']} price_rows launches for "
+          f"{cold['calls_with_device_rows']} calls with device rows")
+    check(warm["plan_source"] == "store" and warm["planner_invocations"] == 0
+          and warm["calls"] == 0 and warm["launches"] == 0,
+          f"serve_planned warm: {warm['plan_source']}, "
+          f"{warm['planner_invocations']} planner invocations, "
+          f"{warm['calls']} pricing calls, {warm['launches']} launches")
+    check(cold["planned_cycles_per_token"]
+          == warm["planned_cycles_per_token"], "warm plan differs")
+    for label in ("cold", "warm"):
+        check(runs[label]["outputs"] == runs["unplanned"]["outputs"],
+              f"serve_planned {label}: tokens differ from the unplanned run")
+    out = {label: {k: v for k, v in r.items() if k != "outputs"}
+           for label, r in runs.items()}
+    print("serve_planned " + json.dumps(out))
+    return out
+
+
+def phase_tenants():
+    """Path A, tenants: ``repro_torch.launch.serve --use-kernels --tenants
+    qwen2.5-3b:2:1,rwkv6-1.6b:1 --plan-store`` at full width.  Its
+    multi-tenant plan (torch engine on the card) must equal the numpy
+    engine's (from cold caches) and reload warm from the store with no
+    planner call; then the scheduler runs again in each of the three
+    modes on fresh engines of the same weights, timed.  Every request's
+    tokens, in the launcher's run and in every mode, must be the bits of
+    the same request served alone on an engine of its tenant; every run
+    must launch ``fused_mlp`` once a layer and tick of a qwen2.5-3b
+    engine and ``wkv6`` once a layer and tick of the rwkv6-1.6b one."""
+    import torch
+    from repro_torch.core import (MultiTenantRequest, Planner, PlanStore,
+                                  mtplan_to_dict, resolve_multi_tenant)
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.runtime.serve_loop import (AdmissionScheduler, Lane,
+                                                Request, ServeEngine)
+    out = {"tenants": TENANTS}
+    with _scratch_dir() as tmp:
+        _cold_planner_caches()
+        _zero_counts()
+        with _pricing_calls() as seen:
+            t0 = time.perf_counter()
+            plan, sched = serve_cli.main(["--use-kernels", "--tenants",
+                                          TENANTS, "--plan-store", tmp])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = _counts()
+        check(plan.source == "planner", f"tenant plan from {plan.source}")
+        out["plan"] = {"mode": plan.mode, "source": plan.source,
+                       "planner_invocations": _planner_invocations(),
+                       "speedup_vs_serialized": plan.speedup_vs_serialized,
+                       "candidates": [c[0] for c in plan.candidates],
+                       **seen}
+        engines = {name: lane.engine for name, lane in sched.lanes.items()}
+        cfgs = [e.cfg for e in engines.values()]
+        tenants = serve_cli.parse_tenants(TENANTS)
+        cuda = next(iter(engines.values())).device
+        request = serve_cli.tenant_request(tenants, cfgs, cuda)
+        on_numpy = MultiTenantRequest(tuple(
+            dataclasses.replace(t, request=dataclasses.replace(
+                t.request, engine="numpy")) for t in request.tenants))
+        _cold_planner_caches()
+        want = mtplan_to_dict(resolve_multi_tenant(on_numpy,
+                                                   planner=Planner()))
+        diff = _tree_differs(mtplan_to_dict(plan), want)
+        check(diff is None, f"tenant plan, torch engine on cuda vs numpy "
+                            f"engine: {diff}")
+        _cold_planner_caches()
+        with _pricing_calls() as warm_seen:
+            warm = resolve_multi_tenant(request, store=PlanStore(tmp))
+        check(warm.source == "store" and _planner_invocations() == 0
+              and warm_seen["calls"] == 0 and warm_seen["launches"] == 0,
+              f"tenant plan warm: {warm.source}, {warm_seen}")
+        check(_tree_differs(mtplan_to_dict(warm), mtplan_to_dict(plan))
+              is None, "tenant plan reloaded from the store differs")
+        out["warm"] = {"source": warm.source, "planner_invocations": 0,
+                       **warm_seen}
+
+    def record(label, s, launches):
+        """Check one scheduler run's launches and completions; return its
+        tokens by request id and its record."""
+        tokens = sum(len(r.output) for v in s.done.values() for r in v)
+        engine_ticks = {n: l.engine.ticks for n, l in s.lanes.items()}
+        for name, kind in (("fused_mlp", "dense"), ("wkv6", "rwkv")):
+            want = sum(_per_call(l.engine.cfg)[name] * l.engine.ticks
+                       for l in s.lanes.values()
+                       if l.engine.cfg.arch_kind == kind)
+            check(launches[name] == want,
+                  f"tenants {label}: {name} launched {launches[name]} times,"
+                  f" expected {want}")
+        check(s.stats()["completed"] == 6 * len(s.lanes) and not s.truncated,
+              f"tenants {label}: {s.stats()}")
+        return ({r.rid: r.output for v in s.done.values() for r in v},
+                {"mode": s.mode, "scheduler_ticks": s.ticks,
+                 "engine_ticks": engine_ticks, "tokens": tokens,
+                 "fused_mlp_launches": launches["fused_mlp"],
+                 "wkv6_launches": launches["wkv6"]})
+
+    outputs, out["launcher"] = record("launcher", sched, launches)
+    out["launcher"]["seconds_with_init_and_plan"] = secs
+    requests = {name: sorted((r.rid, list(r.prompt), r.max_new_tokens)
+                             for r in sched.done[name]) for name in engines}
+
+    def fresh(engine):
+        return ServeEngine(engine.params, engine.cfg, batch_slots=engine.B,
+                           max_len=engine.max_len, device=engine.device)
+
+    runs = {"launcher": outputs}
+    out["modes"] = {}
+    for mode in AdmissionScheduler.MODES:
+        s = AdmissionScheduler([Lane(l.name, fresh(l.engine), l.share,
+                                     l.priority)
+                                for l in sched.lanes.values()], mode=mode)
+        for name, reqs in requests.items():
+            for rid, prompt, n in reqs:
+                s.submit(name, Request(rid=rid, prompt=prompt,
+                                       max_new_tokens=n))
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        s.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        runs[mode], rec = record(mode, s, _counts())
+        rec.update(seconds=dt, tokens_per_s=rec["tokens"] / dt,
+                   plan_mode=mode == plan.mode)
+        out["modes"][mode] = rec
+        tag = " (the plan's mode)" if mode == plan.mode else ""
+        print(f"tenants {mode}{tag}: {rec['tokens']} tokens in {dt:.3f} s "
+              f"({rec['tokens_per_s']:.1f} tok/s), {s.ticks} scheduler "
+              f"ticks, engine ticks {rec['engine_ticks']}, fused_mlp "
+              f"{rec['fused_mlp_launches']}, wkv6 {rec['wkv6_launches']} "
+              "launches")
+        del s
+    solo = {}
+    for name, reqs in requests.items():
+        for rid, prompt, n in reqs:
+            e = fresh(engines[name])
+            e.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n))
+            solo[rid] = e.run()[0].output
+    for label, got in runs.items():
+        check(got == solo, f"tenants {label}: tokens differ from the same "
+                           "requests served alone")
+    out["solo_requests"] = len(solo)
+    print("tenants " + json.dumps(out))
+    del sched, engines
+    _free_card()
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2561,6 +2935,9 @@ def main() -> None:
     pr_rows, pr_calls = phase_price_rows(calls, floor_ms)
     sim = phase_simulate(plans)
     small = phase_small_reference()
+    plan_lm = phase_plan_lm()
+    planned = phase_serve_planned()
+    tenants = phase_tenants()
 
     main_row = next(r for r in rows
                     if r["shape"] == "decode" and r["dtype"] == "bfloat16")
@@ -2605,6 +2982,12 @@ def main() -> None:
     kernels[0]["vlm_launches"] = {
         "serve": serves["qwen2-vl-2b"]["launches"]["fused_mlp"],
         "forward": forwards["qwen2-vl-2b"]["launches"]["fused_mlp"]}
+    # planned serving: the cold --plan-store run, and the tenant scheduler
+    # in each mode
+    kernels[0]["planned_serve_launches"] = (
+        planned["cold"]["model_launches"]["fused_mlp"])
+    kernels[0]["tenant_launches"] = {
+        mode: r["fused_mlp_launches"] for mode, r in tenants["modes"].items()}
     # the planner's kernels: no single PyTorch call computes either
     # function (a max-plus scan; the Fig. 3 recurrence), so library_ms is
     # null; their main rows are the simulator's one-row T = 512 scan and
@@ -2635,7 +3018,12 @@ def main() -> None:
         "plan_device_ms": plan["plan_device_ms"],
         "widest_E": plan["edges_max"], "widest_B": wide["B"],
         "widest_device_ms": wide["device_ms"], "widest_ms": wide["ms"],
-        "widest_bound_ms": wide["bound_ms"]})
+        "widest_bound_ms": wide["bound_ms"],
+        # the LM-zoo plan pass (29 graphs, cold caches) on the card
+        "lm_plan_launches": plan_lm["torch_launches"],
+        "lm_plan_calls_with_device_rows": plan_lm[
+            "torch_calls_with_device_rows"],
+        "lm_plan_wall_s": plan_lm["torch_wall_s"]})
     # the recurrences: no single PyTorch call computes either (a matrix-
     # state linear recurrence; a diagonal one), so library_ms is null;
     # their main rows are the serve paths' decode shapes, their launches
@@ -2671,6 +3059,8 @@ def main() -> None:
             f"{key}_max_abs_err": r["max_abs_err"]})
     wk["prefill_launches"] = (
         forwards["rwkv6-1.6b"]["launches"]["wkv6"])
+    wk["tenant_launches"] = {
+        mode: r["wkv6_launches"] for mode, r in tenants["modes"].items()}
     # rglru_chunked's prefill: the split regime at recurrentgemma-2b's
     # (2, 512) forward (its launches from that forward), beside the step
     # kernel's device time on the same inputs
@@ -2739,6 +3129,8 @@ def main() -> None:
               "serve": serve, "serves": serves, "forwards": forwards,
               "inits": inits,
               "plan": plan, "simulate": sim, "small_reference": small,
+              "plan_lm": plan_lm, "serve_planned": planned,
+              "tenants": tenants,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

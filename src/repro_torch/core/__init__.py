@@ -26,9 +26,11 @@ Stage 2 — HW mapping and NoC architecture:
                   `validate`, optional PlanStore read-through
   simulator.py    event-driven pipeline simulator — the differential-
                   testing oracle for the analytical model above
-
-Not ported yet (ROADMAP.md Queue 1): ``multi_tenant.py`` and the static
-verifier ``verify.py``.
+  verify.py       static plan verifier — pass-based invariant checks over
+                  plans/artifacts (placement, routing, DAG, conservation,
+                  fold, identity) without invoking the simulator
+  multi_tenant.py co-resident graphs on one PE array: spatial bands,
+                  time slices or serialized, under the double guard
 """
 from .dataflow import Dataflow, choose_dataflow, best_case_arithmetic_intensity
 from .depth import Segment, SkipIndex, segment_depths, segment_graph
@@ -59,6 +61,9 @@ from .artifact import (PLAN_SCHEMA_VERSION, SPAN_SCHEMA_VERSION, PlanArtifact,
                        PlanSchemaError, PlanStore, SpanShelf, plan_diffs,
                        plan_from_dict, plan_to_dict)
 from .planner_service import CacheInfo, Planner, get_planner
+from .verify import (FINDING_CODES, Finding, PlanVerifyError,
+                     PlanVerifyWarning, VerifyReport, pass_names,
+                     verify_plan, verify_segment)
 from .simulator import (DEFAULT_MAX_BURSTS, LATENCY_BAND,
                         LATENCY_BAND_UNCONGESTED, SimReport, SegmentSimReport,
                         SegmentValidation, ValidationReport, sim_cache_clear,
@@ -66,6 +71,12 @@ from .simulator import (DEFAULT_MAX_BURSTS, LATENCY_BAND,
                         simulate_segment, validate_plan)
 from .spatial import (Placement, SpatialOrg, allocate_pes, choose_spatial_org,
                       place, place_branches)
+from .multi_tenant import (MT_ARTIFACT_KIND, MT_SCHEMA_VERSION,
+                           MultiTenantArtifact, MultiTenantPlan,
+                           MultiTenantRequest, MultiTenantValidation,
+                           TenantPlan, TenantSpec, band_hw, band_splits,
+                           mtplan_from_dict, mtplan_to_dict,
+                           resolve_multi_tenant, validate_multi_tenant)
 
 __all__ = [
     "Dataflow", "choose_dataflow", "best_case_arithmetic_intensity",
@@ -95,10 +106,17 @@ __all__ = [
     "plan_pipeorgan_uniform", "plan_simba_like", "plan_tangram_like",
     "set_span_shelf", "span_cache_clear", "span_cache_info",
     "CacheInfo", "Planner", "get_planner", "graph_fingerprint",
+    "FINDING_CODES", "Finding", "PlanVerifyError", "PlanVerifyWarning",
+    "VerifyReport", "pass_names", "verify_plan", "verify_segment",
     "DEFAULT_MAX_BURSTS", "LATENCY_BAND", "LATENCY_BAND_UNCONGESTED",
     "SimReport", "SegmentSimReport", "SegmentValidation", "ValidationReport",
     "sim_cache_clear", "sim_cache_info", "simulate_plan",
     "simulate_reference", "simulate_segment", "validate_plan",
     "Placement", "SpatialOrg", "allocate_pes", "choose_spatial_org",
     "place", "place_branches",
+    "MT_ARTIFACT_KIND", "MT_SCHEMA_VERSION", "MultiTenantArtifact",
+    "MultiTenantPlan", "MultiTenantRequest", "MultiTenantValidation",
+    "TenantPlan", "TenantSpec", "band_hw", "band_splits",
+    "mtplan_from_dict", "mtplan_to_dict", "resolve_multi_tenant",
+    "validate_multi_tenant",
 ]

@@ -20,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import warnings
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -49,21 +50,25 @@ class PlanSchemaError(ValueError):
 PathLike = Union[str, os.PathLike]
 
 #: read-through verification modes shared by ``PlanStore`` and
-#: ``SpanShelf`` (mirrors ``repro.core.verify.VERIFY_MODES``).
+#: ``SpanShelf`` (mirrors ``core.verify.VERIFY_MODES``).
 VERIFY_MODES = ("off", "warn", "strict")
 
 
 def _check_verify_mode(mode: str) -> str:
-    """Validate ``verify=``.  The static verifier is not ported yet, so
-    only ``"off"`` runs; ``"warn"``/``"strict"`` raise."""
     if mode not in VERIFY_MODES:
         raise ValueError(f"verify={mode!r}; expected one of {VERIFY_MODES}")
-    if mode != "off":
-        raise NotImplementedError(
-            f"verify={mode!r}: the static plan verifier (core/verify.py) is "
-            "not ported to repro_torch yet (ROADMAP.md Queue 1); use "
-            "verify='off'")
     return mode
+
+
+def _apply_verify(report: Any, mode: str) -> None:
+    """Enforce a ``VerifyReport`` under ``warn``/``strict`` semantics."""
+    if report.ok:
+        return
+    if mode == "strict":
+        report.raise_if_errors()
+    from .verify import PlanVerifyWarning
+    warnings.warn(f"artifact verification found problems:\n"
+                  f"{report.summary()}", PlanVerifyWarning, stacklevel=4)
 
 
 # ---------------------------------------------------------------------------
@@ -347,9 +352,12 @@ class PlanStore:
     artifacts, the serving process ``load``s them — an exact-identity hit
     or ``None`` — so warm startups make *zero* planner invocations.
 
-    ``verify`` would turn on read-through static verification; the
-    verifier is not ported yet, so only ``"off"`` is accepted and
-    ``"warn"``/``"strict"`` raise ``NotImplementedError``.
+    ``verify`` turns on read-through static verification
+    (``core.verify.verify_plan``): every loaded artifact is checked
+    against the plan invariants — ``"warn"`` emits a
+    ``PlanVerifyWarning`` on error findings, ``"strict"`` raises
+    ``PlanVerifyError``.  Writes are never verified here; gate those at
+    the planner (``Planner(verify=...)``).
     """
 
     SUFFIX = ".plan.json"
@@ -385,6 +393,9 @@ class PlanStore:
         if art.token != request.cache_token():
             self.misses += 1
             return None
+        if self.verify != "off":
+            from .verify import verify_plan
+            _apply_verify(verify_plan(art), self.verify)
         self.hits += 1
         return art
 
@@ -456,9 +467,10 @@ class SpanShelf:
     reader never sees a half-written file.  Stale or foreign files
     (wrong kind, schema, or token) read as misses, never as errors.
 
-    ``verify`` would turn on read-through static verification; as for
-    ``PlanStore``, only ``"off"`` is accepted until the verifier is
-    ported.
+    ``verify`` turns on read-through static verification
+    (``core.verify.verify_segment`` — the hardware-independent graph and
+    granularity passes): ``"warn"`` emits a ``PlanVerifyWarning`` on
+    error findings, ``"strict"`` raises ``PlanVerifyError``.
     """
 
     SUFFIX = ".span.json"
@@ -497,6 +509,9 @@ class SpanShelf:
             self.misses += 1
             return None
         plan = _segment_plan_from_dict(doc["plan"])
+        if self.verify != "off":
+            from .verify import verify_segment
+            _apply_verify(verify_segment(plan), self.verify)
         self.hits += 1
         return plan
 

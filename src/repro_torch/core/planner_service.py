@@ -32,8 +32,7 @@ import threading
 import warnings
 from typing import Dict, Mapping, Optional, Tuple, Union
 
-from .artifact import (PlanSchemaError, PlanStore, SpanShelf,
-                       _check_verify_mode)
+from .artifact import PlanSchemaError, PlanStore, SpanShelf
 from .graph import Graph
 from .hwconfig import HWConfig, PAPER_HW
 from .noc import Topology, flow_batch_cache_info
@@ -70,7 +69,9 @@ class Planner:
                  store: Optional[PlanStore] = None,
                  span_shelf: Optional[Union[SpanShelf, str]] = None,
                  verify: str = "off"):
-        _check_verify_mode(verify)
+        if verify not in ("off", "warn", "strict"):
+            raise ValueError(f"verify={verify!r}; expected 'off', 'warn' "
+                             "or 'strict'")
         self.maxsize = maxsize
         self.store = store
         self.verify = verify
@@ -102,10 +103,14 @@ class Planner:
         """Plan one ``PlanRequest`` through the LRU cache (and the
         attached ``PlanStore``, if any).
 
-        ``verify`` gates the static post-condition check of the
-        reference (``repro.core.verify``), which is not ported yet: only
-        ``"off"`` (or ``None``, the planner-wide default) is accepted;
-        ``"warn"``/``"strict"`` raise ``NotImplementedError``.
+        ``verify`` gates the static post-condition check
+        (``core.verify.verify_plan`` — placement, routing, slot-DAG,
+        byte-conservation and fold invariants; never the simulator):
+        ``"off"`` skips it, ``"warn"`` emits a ``PlanVerifyWarning`` on
+        error-severity findings, ``"strict"`` raises ``PlanVerifyError``.
+        ``None`` defers to the planner-wide default set at construction.
+        Only freshly planned or store-loaded results are verified — an
+        LRU hit was already checked when it entered the cache.
 
         Passing a ``Graph`` plus the old positional knobs still works but
         is deprecated: the shim builds the equivalent request, so legacy
@@ -128,7 +133,10 @@ class Planner:
 
     def _plan_request(self, request: PlanRequest,
                       verify: Optional[str] = None) -> PlanResult:
-        _check_verify_mode(self.verify if verify is None else verify)
+        mode = self.verify if verify is None else verify
+        if mode not in ("off", "warn", "strict"):
+            raise ValueError(f"verify={mode!r}; expected 'off', 'warn' "
+                             "or 'strict'")
         with self._lock:
             if request in self._cache:
                 self._cache.move_to_end(request)
@@ -145,12 +153,28 @@ class Planner:
                 self._store_hits += 1
         if result is None:
             result = get_strategy(request.strategy).plan(request)
+        if mode != "off":
+            self._verify_result(result, request, mode)
         with self._lock:
             self._cache[request] = result
             self._cache.move_to_end(request)
             while len(self._cache) > self.maxsize:
                 self._cache.popitem(last=False)
         return result
+
+    @staticmethod
+    def _verify_result(result: PlanResult, request: PlanRequest,
+                       mode: str) -> None:
+        from .verify import PlanVerifyWarning, verify_plan
+        report = verify_plan(result, hw=request.hw,
+                             topology=request.topology)
+        if report.ok:
+            return
+        if mode == "strict":
+            report.raise_if_errors()
+        warnings.warn(f"plan verification found problems:\n"
+                      f"{report.summary()}", PlanVerifyWarning,
+                      stacklevel=4)
 
     def plan_all(self, graphs: Mapping[str, Graph],
                  template: Optional[PlanRequest] = None,

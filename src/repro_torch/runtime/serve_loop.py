@@ -11,9 +11,14 @@ the device runs one decode step per tick over every slot, idle ones
 included.  A vlm (qwen2-vl-2b) serves text only, as the reference's
 decode takes no patches.  The encoder-decoder (whisper-medium) does not
 serve: the reference's ``ServeEngine`` has no enc-dec path either
-(``require_servable``).  The planner hooks (``plan_request``,
-``decode_graph``, ``Lane``, ``AdmissionScheduler``) are not ported yet
-(``ROADMAP.md``).
+(``require_servable``).
+
+The planner hooks are the reference's: ``decode_graph`` lowers the
+decode step to a planner graph, ``ServeEngine(plan_request=,
+plan_store=)`` attaches its accelerator plan (store first, then the
+shared ``Planner``), and ``AdmissionScheduler`` drives one engine per
+tenant in the mode a ``MultiTenantPlan`` resolves.  A request priced by
+the torch engine plans where its ``device`` says (``None``: ``cuda``).
 """
 from __future__ import annotations
 
@@ -25,9 +30,39 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import (Graph, HWConfig, PlanAPIDeprecationWarning,
+                              PlanRequest, PlanSchemaError, PlanStore,
+                              Topology, gemm, get_planner)
 from repro_torch.models.common import DeviceLike, ModelConfig, resolve_device
 from repro_torch.models.transformer import (decode_step, init_cache,
                                             zero_cache_slot)
+
+
+def decode_graph(cfg: ModelConfig) -> Graph:
+    """One decode step of the transformer as an operator DAG.
+
+    Per layer: QKV projection, attention output projection, MLP up and
+    down GEMMs (M=1: a single token), then the LM head — the shapes the
+    PipeOrgan planner needs to place the decode step on an accelerator.
+    """
+    hd = cfg.hd
+    ops = []
+    prev = None
+
+    def g_(name: str, n: int, k: int) -> None:
+        nonlocal prev
+        ops.append(gemm(name, 1, n, k,
+                        inputs=(prev,) if prev is not None else ()))
+        prev = name
+
+    for layer in range(cfg.n_layers):
+        g_(f"l{layer}.qkv", hd * (cfg.n_heads + 2 * cfg.n_kv_heads),
+           cfg.d_model)
+        g_(f"l{layer}.attn_out", cfg.d_model, cfg.n_heads * hd)
+        g_(f"l{layer}.mlp_up", cfg.d_ff, cfg.d_model)
+        g_(f"l{layer}.mlp_down", cfg.d_model, cfg.d_ff)
+    g_("lm_head", cfg.vocab, cfg.d_model)
+    return Graph(f"{cfg.name}-decode", ops)
 
 
 @dataclasses.dataclass
@@ -58,7 +93,11 @@ class ServeEngine:
     lie on that device."""
 
     def __init__(self, params, cfg: ModelConfig, batch_slots: int,
-                 max_len: int, device: DeviceLike = None):
+                 max_len: int, device: DeviceLike = None,
+                 plan_request: Optional[PlanRequest] = None,
+                 plan_store: Optional[PlanStore] = None,
+                 plan_hw: Optional[HWConfig] = None,
+                 plan_topology: Topology = Topology.AMP):
         require_servable(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -77,6 +116,42 @@ class ServeEngine:
         self.generated = np.zeros(batch_slots, np.int32)
         self.ticks = 0
         self.truncated = False
+        # optional accelerator plan for this model's decode step.  The
+        # resolution order is the offline-plan -> online-serve path:
+        #   1. a ``plan_store`` artifact matching ``plan_request`` exactly
+        #      (zero planner invocations on a warm store);
+        #   2. the shared ``Planner`` facade (identical engines hit the
+        #      LRU plan cache instead of re-planning), after which the
+        #      plan is saved back to the store for the next process.
+        # ``plan_hw``/``plan_topology`` are the deprecated pre-request
+        # knobs, kept as a shim; its request prices on the engine's device.
+        if plan_hw is not None:
+            if plan_request is not None:
+                raise TypeError("pass plan_request or the deprecated "
+                                "plan_hw/plan_topology, not both")
+            warnings.warn(
+                "ServeEngine(plan_hw=..., plan_topology=...) is "
+                "deprecated; pass plan_request=PlanRequest(decode_graph("
+                "cfg), hw=..., topology=...) (see docs/api.md)",
+                PlanAPIDeprecationWarning, stacklevel=2)
+            plan_request = PlanRequest(decode_graph(cfg), hw=plan_hw,
+                                       topology=plan_topology,
+                                       device=self.device.type)
+        self.plan = None
+        self.plan_source: Optional[str] = None
+        self.plan_request = plan_request
+        if plan_request is not None:
+            if plan_store is not None:
+                try:
+                    self.plan = plan_store.load(plan_request)
+                except PlanSchemaError:
+                    self.plan = None   # stale-schema artifact: re-plan
+                self.plan_source = "store" if self.plan is not None else None
+            if self.plan is None:
+                self.plan = get_planner().plan(plan_request)
+                self.plan_source = "planner"
+                if plan_store is not None:
+                    plan_store.save(plan_request, self.plan)
 
     # -- device program ------------------------------------------------------
     @torch.inference_mode()
@@ -169,9 +244,169 @@ class ServeEngine:
         return done
 
     def stats(self) -> Dict[str, float]:
-        return {
+        """Engine + (when planned) accelerator-model serving estimates."""
+        out: Dict[str, float] = {
             "ticks": float(self.ticks),
             "queued": float(len(self.queue)),
             "active": float(sum(r is not None for r in self.active)),
             "truncated": float(self.truncated),
         }
+        if self.plan is not None:
+            cyc = self.plan.latency_cycles
+            out["planned_cycles_per_token"] = cyc
+            out["planned_dram_bytes_per_token"] = self.plan.dram_bytes
+            out["planned_cycles_total"] = cyc * self.ticks
+        return out
+
+
+@dataclasses.dataclass
+class Lane:
+    """One tenant's serving lane: its engine plus scheduling weights.
+
+    ``share`` weights the time-multiplexed round-robin; ``priority``
+    orders admission (higher first).  ``deficit`` is the weighted
+    round-robin credit counter (internal).
+    """
+    name: str
+    engine: ServeEngine
+    share: float = 1.0
+    priority: int = 0
+    deficit: float = dataclasses.field(default=0.0, compare=False)
+
+    def __post_init__(self) -> None:
+        if self.share <= 0:
+            raise ValueError("lane share must be > 0")
+
+
+class AdmissionScheduler:
+    """Maps bursty request streams onto tenant lanes over one substrate.
+
+    The execution-side counterpart of ``core.multi_tenant``: a resolved
+    ``MultiTenantPlan`` says *how* the tenants share the array, and this
+    scheduler drives their ``ServeEngine``s accordingly —
+
+      * ``"spatial"`` — tenants sit on disjoint column bands, so every
+        lane with work ticks each round (true concurrency);
+      * ``"time"`` — one lane ticks per round, chosen by share-weighted
+        deficit round-robin (each round every backlogged lane earns
+        ``share`` credit; the largest credit runs and pays the total
+        active share), so long-term tick rates converge to the shares;
+      * ``"serialized"`` — strict priority order, shortest queue first
+        within a priority level; a lane runs until it drains.
+
+    Requests enter per-lane *pending* queues (``submit``) and are
+    admitted into an engine only when it has a free decode slot — the
+    engine-side queue never grows beyond the slot pool, so a burst on
+    one tenant cannot occupy another tenant's admission window.
+    """
+
+    MODES = ("spatial", "time", "serialized")
+
+    def __init__(self, lanes: List[Lane], mode: str = "spatial"):
+        if mode not in self.MODES:
+            raise ValueError(f"unknown mode {mode!r}; one of {self.MODES}")
+        names = [l.name for l in lanes]
+        if len(set(names)) != len(names):
+            raise ValueError(f"lane names must be unique: {names}")
+        self.lanes: Dict[str, Lane] = {l.name: l for l in lanes}
+        self.mode = mode
+        self.pending: Dict[str, Deque[Request]] = {n: deque() for n in names}
+        self.done: Dict[str, List[Request]] = {n: [] for n in names}
+        self.finish_tick: Dict[int, int] = {}      # rid -> scheduler tick
+        self.ticks = 0
+        self.truncated = False
+
+    @classmethod
+    def from_plan(cls, plan, engines: Dict[str, ServeEngine]
+                  ) -> "AdmissionScheduler":
+        """Build the scheduler a resolved ``MultiTenantPlan`` prescribes:
+        one lane per tenant (its share/priority) in the plan's mode."""
+        lanes = [Lane(t.name, engines[t.name], t.share, t.priority)
+                 for t in plan.tenants]
+        return cls(lanes, mode=plan.mode)
+
+    # -- admission -----------------------------------------------------------
+    def submit(self, lane: str, req: Request) -> None:
+        self.pending[lane].append(req)
+
+    def _admit(self) -> None:
+        """Admit pending requests into engines with free decode slots, in
+        lane priority order (higher first) so a high-priority tenant's
+        burst is never starved by a lower-priority backlog."""
+        for lane in sorted(self.lanes.values(),
+                           key=lambda l: (-l.priority, l.name)):
+            pend = self.pending[lane.name]
+            eng = lane.engine
+            free = (sum(r is None for r in eng.active) - len(eng.queue))
+            while pend and free > 0:
+                eng.submit(pend.popleft())
+                free -= 1
+
+    # -- scheduling ----------------------------------------------------------
+    def _backlogged(self) -> List[Lane]:
+        return [l for l in self.lanes.values()
+                if self.pending[l.name] or l.engine.queue
+                or any(r is not None for r in l.engine.active)]
+
+    def _pick_time_sliced(self, ready: List[Lane]) -> Lane:
+        for l in ready:
+            l.deficit += l.share
+        pick = max(ready, key=lambda l: (l.deficit, l.share, l.name))
+        pick.deficit -= sum(l.share for l in ready)
+        return pick
+
+    def _pick_serialized(self, ready: List[Lane]) -> Lane:
+        return min(ready, key=lambda l: (-l.priority, l.name))
+
+    def step(self) -> List[Request]:
+        """One scheduler round; returns requests completed this round."""
+        self._admit()
+        self.ticks += 1
+        ready = self._backlogged()
+        if not ready:
+            return []
+        if self.mode == "spatial":
+            running = ready
+        elif self.mode == "time":
+            running = [self._pick_time_sliced(ready)]
+        else:
+            running = [self._pick_serialized(ready)]
+        finished: List[Request] = []
+        for lane in running:
+            for req in lane.engine.step():
+                self.done[lane.name].append(req)
+                self.finish_tick[req.rid] = self.ticks
+                finished.append(req)
+        return finished
+
+    def run(self, max_ticks: int = 100_000) -> Dict[str, List[Request]]:
+        self.truncated = False
+        ticks = 0
+        while self._backlogged() and ticks < max_ticks:
+            self.step()
+            ticks += 1
+        left = self._backlogged()
+        if left:
+            self.truncated = True
+            warnings.warn(
+                f"AdmissionScheduler.run() stopped at max_ticks="
+                f"{max_ticks} with lanes {[l.name for l in left]} still "
+                "backlogged; results are truncated "
+                '(see stats()["truncated"])', RuntimeWarning, stacklevel=2)
+        return self.done
+
+    def stats(self) -> Dict[str, float]:
+        out: Dict[str, float] = {
+            "ticks": float(self.ticks),
+            "truncated": float(self.truncated),
+            "completed": float(sum(len(v) for v in self.done.values())),
+        }
+        for name, lane in sorted(self.lanes.items()):
+            done = self.done[name]
+            out[f"{name}.completed"] = float(len(done))
+            out[f"{name}.pending"] = float(len(self.pending[name]))
+            out[f"{name}.engine_ticks"] = float(lane.engine.ticks)
+            if done:
+                out[f"{name}.mean_finish_tick"] = float(
+                    np.mean([self.finish_tick[r.rid] for r in done]))
+        return out

@@ -112,18 +112,49 @@ def test_planning_on_cuda_without_a_card_raises():
 
 
 def test_verifier_modes_raise_until_ported(tmp_path):
-    for mode in ("warn", "strict"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pc.Planner(verify=mode)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pc.PlanStore(tmp_path / "store", verify=mode)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pc.SpanShelf(tmp_path / "shelf", verify=mode)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pc.Planner().plan(_request("action_segmentation",
-                                       engine="numpy"), verify=mode)
-    with pytest.raises(ValueError):
-        pc.Planner(verify="bogus")
+    """The verifier is ported, so ``verify="warn"|"strict"`` no longer
+    raise ``NotImplementedError``: on a corrupt artifact ``warn`` warns
+    and still serves it, and ``strict`` raises ``PlanVerifyError``, in
+    ``Planner``, ``PlanStore`` and ``SpanShelf``; a bad mode still raises
+    ``ValueError``."""
+    import dataclasses
+    req = _request("action_segmentation", engine="torch", device="cpu")
+    plan = pc.Planner().plan(req)
+    k = next(i for i, s in enumerate(plan.segments) if s.granularities)
+    seg = plan.segments[k]
+    segments = list(plan.segments)
+    segments[k] = dataclasses.replace(seg, cost=dataclasses.replace(
+        seg.cost, dram_bytes=seg.cost.dram_bytes + 1e6))
+    pc.PlanStore(tmp_path / "store").save(
+        req, dataclasses.replace(plan, segments=segments))
+    pc.SpanShelf(tmp_path / "shelf").save("a" * 64, seg)
+    gr = seg.granularities[0]
+    pc.SpanShelf(tmp_path / "shelf").save("b" * 64, dataclasses.replace(
+        seg, granularities=[dataclasses.replace(gr, elements=gr.elements * 2)]
+        + list(seg.granularities[1:])))
+    loads = {
+        "Planner": lambda mode: pc.Planner(
+            store=pc.PlanStore(tmp_path / "store"), verify=mode).plan(req),
+        "Planner.plan(verify=)": lambda mode: pc.Planner(
+            store=pc.PlanStore(tmp_path / "store")).plan(req, verify=mode),
+        "PlanStore": lambda mode: pc.PlanStore(
+            tmp_path / "store", verify=mode).load(req),
+        "SpanShelf": lambda mode: pc.SpanShelf(
+            tmp_path / "shelf", verify=mode).load("b" * 64),
+    }
+    for name, load in loads.items():
+        assert load("off") is not None, name
+        with pytest.warns(pc.PlanVerifyWarning):
+            assert load("warn") is not None, name
+        with pytest.raises(pc.PlanVerifyError):
+            load("strict")
+    # a clean artifact passes the strict gate
+    assert pc.SpanShelf(tmp_path / "shelf", verify="strict").load(
+        "a" * 64) is not None
+    for ctor in (pc.Planner, lambda verify: pc.PlanStore(tmp_path, verify=verify),
+                 lambda verify: pc.SpanShelf(tmp_path, verify=verify)):
+        with pytest.raises(ValueError):
+            ctor(verify="bogus")
 
 
 def test_cache_registry_lists_the_torch_pricer():
