@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch/CUDA port: build, check, serve and plan on
-one card.
+"""Chip smoke of the PyTorch/CUDA port: build, check, serve, plan and
+train on one card.
 
     python3 chip_smoke.py
 
@@ -133,7 +133,20 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    modes on fresh engines of the same weights, timed, each run's
    ``fused_mlp`` and ``wkv6`` launches checked, and every request's
    tokens, in the launcher's run and in every mode, bit-equal to the
-   same request served alone on an engine of its tenant.
+   same request served alone on an engine of its tenant;
+11. train (``train``): ``repro_torch.launch.train --arch qwen2.5-3b
+   --steps 6 --batch 8 --seq 4096`` in-process at full width and depth
+   (4 microbatches of 2 x 4096, remat, bf16 weights, float32 moments):
+   per step the wall time, tokens/s, loss, gradient norm and MFU, the
+   resident and peak memory, the first step's loss against the plain
+   ``loss_fn`` of the same batch, the loss falling, every value finite,
+   no hand-written kernel launched (training runs the plain path, as the
+   reference does), and one more step's device time by category under
+   the profiler; then at full width and 2 layers (``--layers 2 --steps 6
+   --ckpt-every 3 --batch 8 --seq 1024``) a straight run, a run with a
+   fault injected at step 4 and a run of 3 steps resumed to 6 by a
+   fresh process, the last two bit-equal to the first, each
+   checkpoint's save timed.
 
 Any failure raises and exits non-zero.  The second-last line is the JSON
 kernel table; the last line is the device record.  The full results go
@@ -2906,6 +2919,329 @@ def phase_tenants():
     return out
 
 
+#: the train phase: qwen2.5-3b at full width and depth through the port's
+#: launcher at ``train_4k``'s sequence length (4 microbatches of 2 x 4096
+#: from ``pick_microbatches``), then at full width and 2 layers the
+#: checkpoint, fault and resume runs
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", "6", "--batch", "8",
+              "--seq", "4096", "--log-every", "1"]
+TRAIN_CKPT_ARGV = ["--arch", TRAIN_ARCH, "--layers", "2", "--steps", "6",
+                   "--ckpt-every", "3", "--batch", "8", "--seq", "1024",
+                   "--log-every", "1"]
+#: the first step's loss against ``loss_fn`` of the same batch under
+#: ``no_grad`` (remat changes no arithmetic)
+TRAIN_LOSS_RTOL = 1e-3
+#: the ops whose kernels are matrix products (cuBLAS): the projections,
+#: the MLP, the LM head and attention's two einsums
+TRAIN_MATMUL_OPS = ("aten::mm", "aten::bmm", "aten::addmm",
+                    "aten::baddbmm", "aten::matmul")
+
+
+def _all_launches() -> dict:
+    """Every kernel's launch count: the model kernels and the planner's."""
+    from repro_torch.kernels.maxplus_scan import maxplus_chunked
+    from repro_torch.kernels.price_rows import price_rows
+    return {**_counts(), "maxplus_chunked": maxplus_chunked.launches,
+            "price_rows": price_rows.launches}
+
+
+def _train_profile(prof, top: int = 12) -> dict:
+    """A profiled train step's device time: the total; the optimizer's
+    (kernels launched inside ``adamw.apply_updates``), the matrix
+    products' (``TRAIN_MATMUL_OPS`` elsewhere) and the rest; and the
+    ``top`` launching ops.  The profiler's "Command Buffer Full" records
+    (the host waiting on a full launch queue) are not device work."""
+    import torch
+    cpu = torch.autograd.DeviceType.CPU
+    by_cat, by_op = {}, {}
+    for e in prof.events():
+        if e.device_type != cpu or not e.kernels:
+            continue
+        us = sum(k.duration for k in e.kernels
+                 if k.name != "Command Buffer Full")
+        if not us:
+            continue
+        by_op[e.name] = by_op.get(e.name, 0.0) + us
+        p = e
+        while p is not None and p.name != "adamw.apply_updates":
+            p = p.cpu_parent
+        cat = ("optimizer" if p is not None else
+               "matmul" if e.name in TRAIN_MATMUL_OPS else "other")
+        by_cat[cat] = by_cat.get(cat, 0.0) + us
+    return {"device_ms": sum(by_cat.values()) / 1e3,
+            "by_category_ms": {k: v / 1e3 for k, v in by_cat.items()},
+            "top_ops_ms": {k: v / 1e3 for k, v in sorted(
+                by_op.items(), key=lambda kv: -kv[1])[:top]}}
+
+
+def _train_parts(cfg, micro_batch: int, seq: int, microbatches: int
+                 ) -> dict:
+    """Device ms a step of the two plain pieces that bound the step,
+    timed alone by CUDA events at the step's shapes: attention (``_sdpa``
+    with its causal mask: per layer and microbatch a forward without
+    grad, then the recomputed forward and its backward) and the loss
+    (``_mask_pad_vocab`` and ``cross_entropy_loss`` of one microbatch's
+    logits, forward and backward); each scaled to the step."""
+    import torch
+
+    from repro_torch.models.common import cross_entropy_loss
+    from repro_torch.models.layers import _sdpa
+    from repro_torch.models.transformer import _mask_pad_vocab
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, S, H, Hkv, hd = micro_batch, seq, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda",
+                           dtype=cfg.dtype)
+
+    q, k, v = rnd(B, S, H, hd), rnd(B, S, Hkv, hd), rnd(B, S, Hkv, hd)
+    i = torch.arange(S, device="cuda")
+    mask = (i[None, :] <= i[:, None])[None].expand(B, S, S)
+
+    def attention():
+        with torch.no_grad():
+            _sdpa(q, k, v, mask, cfg)
+        qg = q.detach().requires_grad_()
+        out = _sdpa(qg, k.detach().requires_grad_(),
+                    v.detach().requires_grad_(), mask, cfg)
+        out.backward(torch.ones_like(out))
+
+    logits = rnd(B, S, cfg.padded_vocab)
+    labels = torch.randint(0, cfg.vocab, (B, S), device="cuda",
+                           generator=g)
+
+    def loss():
+        lg = logits.detach().requires_grad_()
+        cross_entropy_loss(_mask_pad_vocab(lg, cfg), labels).backward()
+
+    sync = torch.cuda.synchronize
+    att = time_ms(attention, sync, target_ms=50.0)
+    ce = time_ms(loss, sync, target_ms=50.0)
+    del q, k, v, logits
+    return {"attention_ms_per_layer_microbatch": att,
+            "attention_ms_per_step": att * cfg.n_layers * microbatches,
+            "loss_ms_per_microbatch": ce,
+            "loss_ms_per_step": ce * microbatches}
+
+
+def _trees_differ(got, want):
+    """None if two trees hold the same keys, dtypes and bits, else the
+    first difference."""
+    import torch
+
+    from repro_torch.tree import flatten_with_path
+    g, w = dict(flatten_with_path(got)), dict(flatten_with_path(want))
+    if g.keys() != w.keys():
+        return f"keys {sorted(g.keys() ^ w.keys())[:4]}"
+    for k in w:
+        if g[k].dtype != w[k].dtype:
+            return f"{'/'.join(k)}: dtype {g[k].dtype} vs {w[k].dtype}"
+        if not torch.equal(g[k], w[k]):
+            diff = (g[k].float() - w[k].float()).abs().max().item()
+            return f"{'/'.join(k)}: max diff {diff:.3g}"
+    return None
+
+
+def train_full():
+    """qwen2.5-3b at 36 x 2048 x 11008 through ``repro_torch.launch.train
+    --steps 6 --batch 8 --seq 4096``: per step the wall time, tokens/s,
+    loss, gradient norm and MFU (6 N T over the step's seconds at the bf16
+    peak); resident and peak memory; the first step's loss against the
+    plain ``loss_fn`` of the same batch; every loss and norm finite, the
+    loss falling, no parameter NaN; no hand-written kernel launched; then
+    one more step under the profiler, and attention and the loss timed
+    alone at the step's shapes (``_train_parts``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import TokenDataset, to_device
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import init_model, loss_fn
+    from repro_torch.runtime.steps import make_train_step
+    cuda = torch.device("cuda")
+    cfg, opt, loop, data = train_cli.setup(
+        train_cli.parser().parse_args(TRAIN_ARGV))
+    M = loop.microbatches
+    ds = TokenDataset(data)
+    _free_card()
+    # the plain forward's loss of the first batch, on the weights the
+    # launcher draws (init_model from the loop's seed)
+    params = init_model(cfg, seed=loop.seed, device=cuda)
+    n_params = sum(t.numel() for t in _leaves(params))
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    batch = to_device(ds.global_batch_at(0), cuda)
+    with torch.no_grad():
+        plain = sum(float(loss_fn(params, cfg, {k: v[i::M] for k, v in
+                                                batch.items()}))
+                    for i in range(M)) / M
+    del params, batch
+    _free_card()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = _all_launches()
+    t0 = time.perf_counter()
+    res = train_cli.main(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in _all_launches().items()}
+    peak = torch.cuda.max_memory_allocated() - held
+    resident = torch.cuda.memory_allocated() - held
+    tokens = data.global_batch * data.seq_len
+    steps = [{"step": h["step"], "wall_s": h["wall_s"],
+              "tokens_per_s": tokens / h["wall_s"], "loss": h["loss"],
+              "grad_norm": h["grad_norm"],
+              "mfu": 6 * n_params * tokens
+              / (h["wall_s"] * PEAK_OPS_PER_S["bfloat16"])}
+             for h in res["history"]]
+    for s in steps:
+        print(f"train full step {int(s['step'])}: {s['wall_s']:.3f} s, "
+              f"{s['tokens_per_s']:.0f} tokens/s, loss {s['loss']:.4f}, "
+              f"grad_norm {s['grad_norm']:.4f}, MFU {s['mfu']:.4f}")
+    check(len(steps) == 6, f"train full: {len(steps)} logged steps")
+    check(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+              for s in steps), "train full: a loss or norm is not finite")
+    check(steps[-1]["loss"] < steps[0]["loss"],
+          f"train full: loss {steps[0]['loss']:.4f} -> "
+          f"{steps[-1]['loss']:.4f} did not fall")
+    check(all(bool(torch.isfinite(p).all()) for p in
+              _leaves(res["params"])), "train full: a parameter is NaN")
+    rel = abs(steps[0]["loss"] - plain) / abs(plain)
+    check(rel <= TRAIN_LOSS_RTOL,
+          f"train full: step 1 loss {steps[0]['loss']:.6f} vs plain "
+          f"loss_fn {plain:.6f} (rel {rel:.3g})")
+    check(not any(launches.values()),
+          f"train full: hand-written kernels launched {launches}")
+    # one more step under the profiler (batch 6, from the run's state)
+    step_fn = make_train_step(cfg, opt, M)
+    b6 = to_device(ds.global_batch_at(6), cuda)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step_fn(res["params"], res["opt_state"], b6)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t1
+    breakdown = _train_profile(prof)
+    del prof
+    parts = _train_parts(cfg, data.global_batch // M, data.seq_len, M)
+    steady = sorted(s["wall_s"] for s in steps[1:])[len(steps[1:]) // 2]
+    out = {"arch": TRAIN_ARCH, "argv": TRAIN_ARGV,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab, "n_params": n_params,
+           "microbatches": M, "tokens_per_step": tokens,
+           "weights_gb": weights / 1e9, "steps": steps,
+           "median_step_s_2_to_6": steady,
+           "tokens_per_s_steady": tokens / steady,
+           "mfu_steady": 6 * n_params * tokens
+           / (steady * PEAK_OPS_PER_S["bfloat16"]),
+           "launcher_wall_s": wall, "loop_seconds": res["seconds"],
+           "plain_loss_step1": plain, "loss_rel_vs_plain": rel,
+           "resident_gb": resident / 1e9, "peak_gb": peak / 1e9,
+           "kernel_launches": launches,
+           "profiled_step_wall_s": prof_wall, "profile": breakdown,
+           "parts": parts}
+    print("train full " + json.dumps({k: v for k, v in out.items()
+                                      if k != "steps"}))
+    del res, step_fn, b6
+    _free_card()
+    return out
+
+
+def train_resume():
+    """qwen2.5-3b at full width and 2 layers, ``--steps 6 --ckpt-every 3
+    --batch 8 --seq 1024``, three ways: (a) straight through the
+    launcher; (b) with ``FaultInjector(fail_at=4)``; (c) 3 steps, then a
+    fresh process of the launcher resuming to 6.  (b) recovers once, and
+    (b) and (c) end with (a)'s parameters and optimizer state, bit for
+    bit; (a)'s last checkpoint restores through ``restore`` into the leaf
+    dtypes.  Records each save's host copy and write seconds."""
+    import os
+    import shutil
+
+    from repro_torch.checkpoint.store import restore
+    from repro_torch.launch import train as train_cli
+    from repro_torch.runtime.train_loop import FaultInjector, train
+    out = {"argv": TRAIN_CKPT_ARGV}
+
+    def setup(ckpt_dir):
+        return train_cli.setup(train_cli.parser().parse_args(
+            TRAIN_CKPT_ARGV + ["--ckpt-dir", ckpt_dir]))
+
+    _free_card()
+    with _scratch_dir() as tmp:
+        out["disk_free_gb"] = shutil.disk_usage(tmp).free / 1e9
+        dirs = {k: os.path.join(tmp, k) for k in "abc"}
+        t0 = time.perf_counter()
+        a = train_cli.main(TRAIN_CKPT_ARGV + ["--ckpt-dir", dirs["a"]])
+        out["a"] = {"seconds": time.perf_counter() - t0,
+                    "saves": a["saves"],
+                    "losses": [h["loss"] for h in a["history"]]}
+        final = {"params": a["params"], "opt": a["opt_state"]}
+        n_params = sum(t.numel() for t in _leaves(a["params"]))
+        out["n_params"] = n_params
+        t0 = time.perf_counter()
+        diff = _trees_differ(restore(dirs["a"], 6, final), final)
+        out["restore_s"] = time.perf_counter() - t0
+        check(diff is None, f"train resume: (a)'s checkpoint restores "
+                            f"differently: {diff}")
+        shutil.rmtree(dirs["a"])
+        cfg, opt, loop, data = setup(dirs["b"])
+        t0 = time.perf_counter()
+        b = train(cfg, opt, loop, data, fault=FaultInjector(fail_at=4),
+                  device="cuda")
+        out["b"] = {"seconds": time.perf_counter() - t0,
+                    "failures": b["failures"], "steps_run": b["steps_run"],
+                    "saves": b["saves"]}
+        check(b["failures"] == 1, f"train resume (b): {b['failures']} "
+                                  "failures")
+        diff = _trees_differ({"params": b["params"],
+                              "opt": b["opt_state"]}, final)
+        check(diff is None, f"train resume (b) differs from (a): {diff}")
+        del b
+        shutil.rmtree(dirs["b"])
+        cfg, opt, loop, data = setup(dirs["c"])
+        c = train(cfg, opt, dataclasses.replace(loop, steps=3), data,
+                  device="cuda")
+        out["c"] = {"saves": c["saves"]}
+        del c
+        _free_card()
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            filter(None, [str(SRC), os.environ.get("PYTHONPATH")])))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train",
+             *TRAIN_CKPT_ARGV, "--ckpt-dir", dirs["c"]],
+            env=env, capture_output=True, text=True, timeout=600)
+        out["c"]["resume_process_s"] = time.perf_counter() - t0
+        out["c"]["resume_stdout"] = proc.stdout.splitlines()[-8:]
+        check(proc.returncode == 0 and "resumed from step 3" in proc.stdout,
+              f"train resume (c): rc {proc.returncode}: "
+              f"{proc.stdout[-800:]} {proc.stderr[-1500:]}")
+        diff = _trees_differ(restore(dirs["c"], 6, final), final)
+        check(diff is None, f"train resume (c) differs from (a): {diff}")
+    out["save_gb"] = 12 * n_params / 1e9      # float32 params, mu, nu
+    print("train resume " + json.dumps(out))
+    del a, final
+    _free_card()
+    return out
+
+
+def phase_train():
+    """Training: ``train_full``, then ``train_resume``."""
+    return {"full": train_full(), "resume": train_resume()}
+
+
+def _expandable_segments() -> None:
+    """Let the CUDA caching allocator grow its segments in place, as
+    ``repro_torch.launch.train`` does for a process of its own: set
+    before the first CUDA use, since the train phase runs in this
+    process after every other one."""
+    import os
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2921,6 +3257,7 @@ def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
     sys.path.insert(0, str(SRC))
+    _expandable_segments()
     import torch
 
     t_start = time.perf_counter()
@@ -2938,6 +3275,7 @@ def main() -> None:
     plan_lm = phase_plan_lm()
     planned = phase_serve_planned()
     tenants = phase_tenants()
+    train = phase_train()
 
     main_row = next(r for r in rows
                     if r["shape"] == "decode" and r["dtype"] == "bfloat16")
@@ -3120,6 +3458,11 @@ def main() -> None:
             "whisper-medium decode step": (
                 forwards["whisper-medium"]["decode_step_launches"]
                 ["flash_attention"])}})
+    # the training path runs no hand-written kernel (the reference's
+    # jax.grad cannot pass through pallas_call; the port trains on the
+    # plain path as the reference does)
+    for k in kernels:
+        k["train_launches"] = train["full"]["kernel_launches"][k["name"]]
     record = {"card": smi, "kernels": kernels, "fused_mlp_rows": rows,
               "maxplus_rows": mp_rows, "maxplus_exact": mp_exact,
               "price_rows_rows": pr_rows, "price_rows_calls": pr_calls,
@@ -3130,7 +3473,7 @@ def main() -> None:
               "inits": inits,
               "plan": plan, "simulate": sim, "small_reference": small,
               "plan_lm": plan_lm, "serve_planned": planned,
-              "tenants": tenants,
+              "tenants": tenants, "train": train,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

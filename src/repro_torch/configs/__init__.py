@@ -4,13 +4,14 @@
 reduced smoke sibling), as ``repro.configs.get_config`` does.  All ten
 run; whisper-medium (encdec) through ``encode_frames``,
 ``whisper_forward`` and ``whisper_decode_step`` rather than ``forward``
-and ``decode_step``.
+and ``decode_step``.  ``SHAPES`` holds the reference's input-shape
+cells (``train_4k`` is the training launcher's default).
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import SHAPES, ModelConfig, ShapeSpec
 
 ARCHS = {
     "qwen2.5-3b": "qwen2_5_3b",
@@ -35,4 +36,4 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-__all__ = ["ARCHS", "get_config"]
+__all__ = ["ARCHS", "SHAPES", "ShapeSpec", "get_config"]

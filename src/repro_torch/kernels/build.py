@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into ``_build/lib<name>-<digest>.so`` at first use (the digest
 covers the sources and flags, so an edit rebuilds).  The build runs on
 the machine with the card; nothing is compiled at import time, so the
-CPU tests import every module without ``nvcc``.  ``on_device`` and
-``launch_stream`` serve the wrappers' launch paths.
+CPU tests import every module without ``nvcc``.  ``on_device``,
+``launch_stream`` and ``refuse_grad`` serve the wrappers' launch paths.
 """
 from __future__ import annotations
 
@@ -161,3 +161,14 @@ def launch_stream(device: torch.device) -> int:
     kernel takes one or two; this reads the handle as PyTorch's own
     generated kernels' launchers do."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would lose gradients: a kernel's outputs are
+    fresh tensors from a ``ctypes`` launch, with no backward, so under
+    grad mode an input that requires grad would silently get none.  The
+    CPU branches (the plain versions) stay differentiable."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward; the reference trains "
+                           "on the plain path (use_kernels=False)")

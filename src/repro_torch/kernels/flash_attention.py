@@ -119,9 +119,11 @@ def _library() -> ctypes.CDLL:
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor,
            v: torch.Tensor) -> None:
-    """Device, dtype, contiguity and alignment checks of a CUDA call."""
+    """Device, grad mode, dtype, contiguity and alignment checks of a
+    CUDA call."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
+    build.refuse_grad(name, q, k, v)
     if (q.dtype not in (torch.float32, torch.bfloat16)
             or k.dtype != q.dtype or v.dtype != q.dtype):
         raise TypeError(f"{name} takes float32 or bfloat16 inputs of one "

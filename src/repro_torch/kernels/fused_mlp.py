@@ -214,6 +214,7 @@ def fused_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         return fused_mlp_ref(x, w_gate, w_up, w_down)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp runs on cuda or cpu, not {x.device}")
+    build.refuse_grad("fused_mlp", *tensors)
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in tensors):
         raise TypeError("fused_mlp takes float32 or bfloat16 inputs of one "
                         f"dtype, got {[t.dtype for t in tensors]}")

@@ -164,6 +164,7 @@ def rglru_chunked(a: torch.Tensor, b: torch.Tensor,
         return rglru_ref(a, b, h0)
     if dev.type != "cuda":
         raise ValueError(f"rglru_chunked runs on cuda or cpu, not {dev}")
+    build.refuse_grad("rglru_chunked", a, b, h0)
     f32 = torch.float32
     if a.dtype != f32 or b.dtype != f32 or (h0 is not None
                                             and h0.dtype != f32):

@@ -175,6 +175,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return wkv6_ref(r, k, v, w, u, s0)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
+    build.refuse_grad("wkv6", *tensors)
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("wkv6 takes float32 inputs, got "
                         f"{[t.dtype for t in tensors]}")

@@ -1,5 +1,5 @@
-"""Shared model machinery: config, device choice, norms, RoPE (and
-Qwen2-VL's M-RoPE), sinusoidal positions, init.
+"""Shared model machinery: config, shapes, device choice, norms, RoPE
+(and Qwen2-VL's M-RoPE), sinusoidal positions, init, the training loss.
 
 Port of ``repro.models.common``.  Models are plain dictionaries of tensors
 plus functions on them, laid out exactly as the reference's pytrees
@@ -67,6 +67,24 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         """Embedding rows padded to a TP-shardable multiple (256)."""
         return -(-self.vocab // 256) * 256
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell of the reference's assignment
+    (``repro.models.common.ShapeSpec``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -160,3 +178,17 @@ def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     return w.mul_(s).to(dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token cross-entropy with the z-loss ``z_loss * lse**2``, in
+    float32.  The padded vocab rows arrive at -1e30 (``_mask_pad_vocab``)
+    and add nothing to the log-sum-exp."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    return torch.mean(loss)

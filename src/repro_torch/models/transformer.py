@@ -6,7 +6,12 @@ moe, rwkv, vlm) stack per-layer parameters on a leading axis as in the
 reference, and whisper stacks its encoder and decoder layers apart; the
 hybrid (RecurrentGemma) family keeps a list of per-layer dictionaries,
 since its layers differ.  The port walks the layers in a Python loop
-(PyTorch runs eagerly, so there is no ``scan`` and no remat).  A MoE
+(PyTorch runs eagerly, so there is no ``scan``).  ``remat=True`` (the
+default, as in the reference) recomputes each layer in the backward pass
+(``torch.utils.checkpoint``, per layer where the reference checkpoints
+per pattern group); it applies only while grad mode is on, so every
+forward under ``no_grad`` or ``inference_mode`` computes the same ops
+either way.  A MoE
 layer differs from a dense one only in its MLP (``layers.moe_ffn``);
 ``forward`` returns the mean of its layers' load-balance losses.  A vlm
 (qwen2-vl) forward prefixes the text with projected patch embeddings and
@@ -16,11 +21,14 @@ too: patch and frame embeddings are inputs.
 
 Entry points:
     init_model(cfg, seed, device)                    -> params
-    forward(params, cfg, tokens, patch_embeds=None)  -> (logits, aux)
+    forward(params, cfg, tokens, patch_embeds=None, remat=True)
+                                                     -> (logits, aux)
+    loss_fn(params, cfg, batch)                      -> scalar loss
     init_cache(cfg, batch, max_len, device)          -> cache
     decode_step(params, cfg, tokens, cache, index)   -> (logits, cache)
     encode_frames(params, cfg, frames)               -> enc      (encdec)
     whisper_forward(params, cfg, frames, tokens)     -> logits   (encdec)
+    whisper_loss_fn(params, cfg, batch)              -> scalar   (encdec)
     whisper_decode_step(params, cfg, tokens, cache, index)
                                                      -> (logits, cache)
 
@@ -29,12 +37,14 @@ the cache tensors in place and return the same dictionary.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from .common import (DeviceLike, ModelConfig, Params, dense_init,
-                     resolve_device, rms_norm, sinusoidal_positions)
+from .common import (DeviceLike, ModelConfig, Params, cross_entropy_loss,
+                     dense_init, resolve_device, rms_norm,
+                     sinusoidal_positions)
 from .layers import (Index, attention, cross_attention, gelu_mlp,
                      init_attention, init_cross_attention, init_gelu_mlp,
                      init_moe, init_swiglu, moe_ffn, swiglu)
@@ -95,6 +105,26 @@ def _layer(tree, l: int):
     if isinstance(tree, tuple):
         return tuple(_layer(v, l) for v in tree)
     return tree[l]
+
+
+def _unstack(tree, n: int) -> List[Any]:
+    """The ``n`` per-layer trees of a stacked parameter tree, as views
+    (``torch.unbind`` along the layer axis, the same views as ``_layer``).
+    Under autograd a leaf's per-layer gradients come back stacked in one
+    tensor, where ``n`` selects would each give a full-size one."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][l] for k in tree} for l in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _apply(remat: bool) -> Callable[..., Any]:
+    """How a forward calls a layer: ``fn(*args)``, or under ``remat``
+    with grad mode on, through ``checkpoint`` (the layer's activations
+    are dropped and recomputed in the backward pass)."""
+    if remat and torch.is_grad_enabled():
+        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
+    return lambda fn, *args: fn(*args)
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -280,8 +310,8 @@ def _layer_fns(params: Params, cfg: ModelConfig
                     _hybrid_layer(cfg, x, lp, pos, c, i), 0.0)
                 for lp in params["layers"]]
     fns = []
-    for l, win in enumerate(layer_windows(cfg)):
-        lp = _layer(params["layers"], l)
+    layers = _unstack(params["layers"], cfg.n_layers)
+    for lp, win in zip(layers, layer_windows(cfg)):
         fns.append(lambda x, pos, c, i, mrope=None, lp=lp, win=win:
                    _uniform_layer(
                        cfg, x, lp,
@@ -305,11 +335,12 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
 # ---------------------------------------------------------------------------
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            patch_embeds: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            patch_embeds: Optional[torch.Tensor] = None,
+            remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits, aux_loss): the mean over
     layers of the MoE load-balance loss, as in the reference (0 for the
-    families without experts).
+    families without experts).  ``remat``: recompute each layer in the
+    backward pass (only while grad mode is on; see the module docstring).
 
     vlm: ``patch_embeds`` (B, n_patches, D), cast to ``cfg.dtype`` and
     projected by ``patch_proj``, come before the text; every layer
@@ -331,13 +362,24 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         mrope = _vlm_positions(cfg, B, S_text, x.device)
     positions = torch.arange(x.shape[1], device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    call = _apply(remat)
     for fn in _layer_fns(params, cfg):
-        x, aux = fn(x, positions, None, None, mrope)
+        x, aux = call(fn, x, positions, None, None, mrope)
         aux_total = aux_total + aux
     # the LM head on the text positions only (the reference cuts its
     # logits back to them; each position's logits are its own)
     return (_logits(params, cfg, x[:, -S_text:]),
             aux_total / max(1, cfg.n_layers))
+
+
+def loss_fn(params: Params, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The training loss of a decoder-only batch ({"tokens", "labels"}
+    (B, S), and "patch_embeds" for the vlm): mean token cross-entropy
+    with z-loss, plus 0.01 x the MoE load-balance loss."""
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          patch_embeds=batch.get("patch_embeds"))
+    return cross_entropy_loss(logits, batch["labels"]) + 0.01 * aux
 
 
 def _vlm_positions(cfg: ModelConfig, B: int, S_text: int,
@@ -511,34 +553,46 @@ def _dec_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
     return x + gelu_mlp(lp["mlp"], h2)
 
 
-def encode_frames(params: Params, cfg: ModelConfig, frames: torch.Tensor
-                  ) -> torch.Tensor:
+def encode_frames(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+                  remat: bool = True) -> torch.Tensor:
     """frames: (B, T_enc, D) precomputed embeddings (the stub frontend),
     cast to ``cfg.dtype`` before the sinusoids are added -> (B, T_enc, D)
-    after ``ln_enc``."""
+    after ``ln_enc``.  ``remat`` as in ``forward``."""
     T = frames.shape[1]
     x = frames.to(cfg.dtype) + sinusoidal_positions(
         T, cfg.d_model, device=frames.device).to(cfg.dtype)
     positions = torch.arange(T, device=x.device)
-    for l in range(cfg.n_enc_layers):
-        x = _enc_layer(cfg, x, _layer(params["enc_layers"], l), positions)
+    call = _apply(remat)
+    for lp in _unstack(params["enc_layers"], cfg.n_enc_layers):
+        x = call(_enc_layer, cfg, x, lp, positions)
     return rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
 def whisper_forward(params: Params, cfg: ModelConfig, frames: torch.Tensor,
-                    tokens: torch.Tensor) -> torch.Tensor:
+                    tokens: torch.Tensor, remat: bool = True
+                    ) -> torch.Tensor:
     """Encoder over ``frames``, then the decoder over ``tokens`` (B, S)
     with position s's sinusoid added at s -> (B, S, padded_vocab) logits,
-    tied to ``embed``, the padded rows masked."""
-    enc = encode_frames(params, cfg, frames)
+    tied to ``embed``, the padded rows masked.  ``remat`` as in
+    ``forward``, for the encoder and the decoder."""
+    enc = encode_frames(params, cfg, frames, remat)
     S = tokens.shape[1]
     x = params["embed"][tokens] + sinusoidal_positions(
         S, cfg.d_model, device=tokens.device).to(cfg.dtype)
     positions = torch.arange(S, device=x.device)
-    for l in range(cfg.n_layers):
-        x = _dec_layer(cfg, x, _layer(params["dec_layers"], l), positions,
-                       enc)
+    call = _apply(remat)
+    for lp in _unstack(params["dec_layers"], cfg.n_layers):
+        x = call(_dec_layer, cfg, x, lp, positions, enc)
     return _logits(params, cfg, x)
+
+
+def whisper_loss_fn(params: Params, cfg: ModelConfig,
+                    batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The encoder-decoder's training loss: mean token cross-entropy
+    (with z-loss) of ``whisper_forward`` over {"frames", "tokens"}
+    against "labels"."""
+    logits = whisper_forward(params, cfg, batch["frames"], batch["tokens"])
+    return cross_entropy_loss(logits, batch["labels"])
 
 
 def whisper_decode_step(params: Params, cfg: ModelConfig,

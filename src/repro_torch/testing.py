@@ -2,15 +2,34 @@
 
 ``synthetic_rows`` makes planner pricing rows (``PriceRow``) beyond the
 shapes a planning run gives: wider slot DAGs and more incoming edges.
-The planner never calls this module.
+The planner never calls this module.  ``train_batch`` makes a training
+batch of any arch, patch embeddings and frames included.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 
 from .core.pipeline_model_torch import PriceRow
+from .models.common import ModelConfig
+
+
+def train_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0
+                ) -> Dict[str, np.ndarray]:
+    """A seeded numpy batch for ``cfg``'s loss: int32 "tokens" and
+    "labels" (batch, seq) below the vocab, and float32 "patch_embeds"
+    (vlm) or "frames" (encdec) drawn from a standard normal."""
+    rng = np.random.default_rng(seed)
+    out = {k: rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32)
+           for k in ("tokens", "labels")}
+    if cfg.arch_kind == "vlm":
+        out["patch_embeds"] = rng.standard_normal(
+            (batch, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.arch_kind == "encdec":
+        out["frames"] = rng.standard_normal(
+            (batch, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def synthetic_rows(edge_counts: Sequence[int], seed: int = 0,

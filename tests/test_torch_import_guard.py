@@ -41,7 +41,11 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.kernels.rglru_scan",
                 "repro_torch.models.rwkv6", "repro_torch.models.rglru",
                 "repro_torch.kernels.flash_attention",
-                "repro_torch.configs.gemma3_4b"):
+                "repro_torch.configs.gemma3_4b",
+                "repro_torch.optim.adamw", "repro_torch.runtime.steps",
+                "repro_torch.runtime.train_loop",
+                "repro_torch.checkpoint.store",
+                "repro_torch.data.pipeline", "repro_torch.launch.train"):
         assert mod in res["imported"]
 
 

@@ -791,3 +791,41 @@ def test_vlm_and_whisper_take_the_flash_kernel_on_the_card():
             assert flash_attention.launches == f0 + cfg.n_layers
             torch.testing.assert_close(lg[:, 0], full[:, i], atol=1e-4,
                                        rtol=1e-4)
+
+
+def test_kernel_wrappers_refuse_grad_mode():
+    """A kernel's outputs are fresh tensors from a ctypes launch, with no
+    backward: under grad mode an input that requires grad raises rather
+    than silently losing its gradient, with no launch counted.  Without
+    grad mode (serving runs under inference_mode) the kernels launch."""
+    from repro_torch.kernels.flash_attention import (attention_op,
+                                                     flash_attention)
+    from repro_torch.kernels.rglru_scan import rglru_chunked
+    from repro_torch.kernels.rwkv6_scan import wkv6
+    _need_card()
+    x, wg, wu, wd = _inputs(5, 64, 128, torch.bfloat16)
+    q = torch.randn(1, 64, 4, 32, device="cuda", dtype=torch.bfloat16)
+    kv = torch.randn(1, 64, 2, 32, device="cuda", dtype=torch.bfloat16)
+    q3, k3 = (torch.randn(4, 64, 32, device="cuda", dtype=torch.bfloat16)
+              for _ in range(2))
+    r, k, v, w, u, _ = _wkv_inputs(2, 4, 64)
+    a, b, h0 = _rglru_inputs(2, 8, 32)
+    calls = [
+        (fused_mlp, lambda t: fused_mlp(x, t, wu, wd), wg),
+        (flash_attention, lambda t: attention_op(t, kv, kv), q),
+        (flash_attention, lambda t: flash_attention(t, k3, k3), q3),
+        (wkv6, lambda t: wkv6(r, k, v, w, t), u),
+        (rglru_chunked, lambda t: rglru_chunked(a, t), b),
+    ]
+    for fn, call, arg in calls:
+        before = fn.launches
+        with pytest.raises(RuntimeError, match="has no backward"):
+            call(arg.detach().requires_grad_())
+        assert fn.launches == before
+        with torch.no_grad():
+            call(arg.detach().requires_grad_())
+        with torch.inference_mode():
+            call(arg)
+        call(arg)                       # grad mode, nothing requires grad
+        torch.cuda.synchronize()
+        assert fn.launches == before + 3
