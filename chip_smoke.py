@@ -146,7 +146,25 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    --ckpt-every 3 --batch 8 --seq 1024``) a straight run, a run with a
    fault injected at step 4 and a run of 3 steps resumed to 6 by a
    fresh process, the last two bit-equal to the first, each
-   checkpoint's save timed.
+   checkpoint's save timed;
+12. mesh (``mesh``): this process as one NCCL rank on the (1, 1) host
+   mesh: ``launch.train`` in a world of one (``WORLD_SIZE=1``) for the
+   train phase's first 3 steps (each step's loss and gradient norm
+   against that phase's, bit-equal or the difference recorded, s/step,
+   peak GB, no kernel launched, the collectives one more step issues by
+   ``CommDebugMode``); the 2-layer
+   straight, faulted (the mesh re-formed) and resumed runs on the mesh,
+   bit-equal; ``make_prefill_step`` of qwen2.5-3b with the kernels on
+   (1, 4096) with DTensor parameters (36 ``fused_mlp`` and 36
+   ``flash_attention`` launches in that run alone, logits against the
+   mesh-less kernel path, each kernel against its plain version at
+   those shapes), and ``pipeline_spmd_fn`` at one stage with one
+   decoder layer over 4 microbatches, bit-equal to the layer on each;
+13. dryrun (``dryrun``, on the host, started at the beginning in a
+   process of its own): ``launch.dryrun.run_cell`` for qwen2.5-3b x
+   train_4k x 16x16 and moonshot-v1-16b-a3b x decode_32k x 2x16x16 on
+   fake groups of 256 and 512 ranks, each cell's per-device peak within
+   the card's memory.
 
 Any failure raises and exits non-zero.  The second-last line is the JSON
 kernel table; the last line is the device record.  The full results go
@@ -2938,12 +2956,23 @@ TRAIN_MATMUL_OPS = ("aten::mm", "aten::bmm", "aten::addmm",
                     "aten::baddbmm", "aten::matmul")
 
 
-def _all_launches() -> dict:
-    """Every kernel's launch count: the model kernels and the planner's."""
+def _planner_kernels() -> dict:
     from repro_torch.kernels.maxplus_scan import maxplus_chunked
     from repro_torch.kernels.price_rows import price_rows
-    return {**_counts(), "maxplus_chunked": maxplus_chunked.launches,
-            "price_rows": price_rows.launches}
+    return {"maxplus_chunked": maxplus_chunked, "price_rows": price_rows}
+
+
+def _all_launches() -> dict:
+    """Every kernel's launch count: the model kernels and the planner's."""
+    return {**_counts(), **{name: fn.launches
+                            for name, fn in _planner_kernels().items()}}
+
+
+def _zero_all_counts() -> None:
+    """Set every kernel's launch count, the planner's too, to 0."""
+    _zero_counts()
+    for fn in _planner_kernels().values():
+        fn.launches = 0
 
 
 def _train_profile(prof, top: int = 12) -> dict:
@@ -3232,6 +3261,351 @@ def phase_train():
     return {"full": train_full(), "resume": train_resume()}
 
 
+#: the mesh phases' runs: the train phase's, on a (1, 1) mesh of one
+#: NCCL rank, for 3 steps (their learning rates are the 6-step run's:
+#: warmup over 2 steps, the cosine at its start on step 2)
+MESH_TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", "3", "--batch", "8",
+                   "--seq", "4096", "--log-every", "1"]
+#: mesh_prefill's prompt, and the pipeline check's microbatches (1 x S)
+MESH_PREFILL_S = 4096
+PIPELINE_S = 1024
+#: the dry-run cells run on the host (a fake group of 256 or 512 ranks)
+DRYRUN_CELLS = [("qwen2.5-3b", "train_4k", False),
+                ("moonshot-v1-16b-a3b", "decode_32k", True)]
+_DRYRUN = """
+import json, sys
+from repro_torch.launch.dryrun import run_cell
+cells = json.loads(sys.argv[1])
+print(json.dumps([run_cell(a, s, mp, verbose=False) for a, s, mp in cells]))
+"""
+
+
+def dryrun_start():
+    """The dry-run of ``DRYRUN_CELLS`` in a process of its own (a fake
+    process group is global to its process), started at once so that its
+    host time overlaps the card's phases; ``dryrun_finish`` reads it."""
+    import os
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(SRC), os.environ.get("PYTHONPATH")])))
+    return subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN, json.dumps(DRYRUN_CELLS)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), \
+        time.perf_counter()
+
+
+def dryrun_finish(started):
+    """The dry-run's records: per-device GB against the card's memory,
+    FLOPs, collectives and seconds; every cell must fit."""
+    proc, t0 = started
+    out, err = proc.communicate(timeout=900)
+    check(proc.returncode == 0, f"dryrun: rc {proc.returncode}: "
+                                f"{err[-2000:]}")
+    rows = json.loads(out.strip().splitlines()[-1])
+    res = {"wall_s": time.perf_counter() - t0, "cells": []}
+    for r in rows:
+        cell = {"arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"],
+                "peak_gb": r["memory"]["peak_size_in_bytes"] / 1e9,
+                "argument_gb": r["memory"]["argument_size_in_bytes"] / 1e9,
+                "device_gb": r["device_memory_bytes"] / 1e9,
+                "fits": r["fits"], "flops": r["flops"],
+                "collective_bytes": r["collectives"]["total_bytes"],
+                "collective_counts": r["collectives"]["count"],
+                "seconds": r["seconds"]}
+        res["cells"].append(cell)
+        print("dryrun " + json.dumps(cell))
+        check(r["fits"], f"dryrun {r['arch']} x {r['shape']} x {r['mesh']}: "
+                         f"{cell['peak_gb']:.2f} GB a device does not fit")
+    return res
+
+
+def mesh_group():
+    """This process as one NCCL rank (``launch.mesh.process_group``); the
+    mesh phases run on its (1, 1) host mesh."""
+    import logging
+
+    from repro_torch.launch.mesh import process_group
+    # DTensor warns at every redistribution over two mesh dims (even of
+    # size 1); the output's tail must keep the phases' lines
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    process_group("cuda")
+
+
+def _plain(tree):
+    """A tree of DTensors as full plain tensors."""
+    from repro_torch.distributed.hints import to_plain
+    from repro_torch.tree import tree_map
+    return tree_map(to_plain, tree)
+
+
+def mesh_train(plain_steps):
+    """qwen2.5-3b at 36 x 2048 x 11008 through ``repro_torch.launch.train``
+    in a world of one rank, on a NCCL group's (1, 1) mesh, 3 steps of 8 x 4096
+    from the train phase's seed and data: each step's loss and gradient
+    norm against that phase's (bit-equal, or the difference recorded),
+    s/step and peak memory, no hand-written kernel launched, and the
+    collectives one more step issues (``CommDebugMode``)."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.data.pipeline import TokenDataset, shard_batch
+    from repro_torch.distributed.hints import use_mesh
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.steps import make_train_step
+    _free_card()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = _all_launches()
+    t0 = time.perf_counter()
+    res = train_cli.main(MESH_TRAIN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in _all_launches().items()}
+    peak = torch.cuda.max_memory_allocated() - held
+    steps = [{"step": h["step"], "wall_s": h["wall_s"], "loss": h["loss"],
+              "grad_norm": h["grad_norm"]} for h in res["history"]]
+    diffs = []
+    for got, want in zip(steps, plain_steps[:3]):
+        diffs.append({k: got[k] - want[k] for k in ("loss", "grad_norm")})
+        print(f"mesh train step {int(got['step'])}: {got['wall_s']:.3f} s, "
+              f"loss {got['loss']:.6f} (plain {want['loss']:.6f}), "
+              f"grad_norm {got['grad_norm']:.6f} "
+              f"(plain {want['grad_norm']:.6f})")
+        for k in ("loss", "grad_norm"):
+            check(abs(got[k] - want[k]) <= TRAIN_LOSS_RTOL * abs(want[k]),
+                  f"mesh train: step {got['step']} {k} {got[k]} vs the "
+                  f"plain run's {want[k]}")
+    check(len(steps) == 3, f"mesh train: {len(steps)} logged steps")
+    check(not any(launches.values()),
+          f"mesh train: hand-written kernels launched {launches}")
+    cfg, opt, loop, data = train_cli.setup(
+        train_cli.parser().parse_args(MESH_TRAIN_ARGV))
+    mesh = make_host_mesh()
+    step_fn = make_train_step(cfg, opt, loop.microbatches)
+    batch = shard_batch(TokenDataset(data), 3, mesh)
+    comm = CommDebugMode()
+    with use_mesh(mesh), comm:
+        step_fn(res["params"], res["opt_state"], batch)
+    torch.cuda.synchronize()
+    steady = sorted(s["wall_s"] for s in steps[1:])
+    out = {"argv": MESH_TRAIN_ARGV, "mesh": [1, 1], "steps": steps,
+           "diff_vs_plain": diffs,
+           "bit_equal": all(d["loss"] == 0 and d["grad_norm"] == 0
+                            for d in diffs),
+           "median_step_s_2_to_3": steady[len(steady) // 2],
+           "launcher_wall_s": wall, "peak_gb": peak / 1e9,
+           "kernel_launches": launches,
+           "step_collectives": {str(k).split(".")[-1]: int(v) for k, v in
+                                comm.get_comm_counts().items()}}
+    print("mesh train " + json.dumps({k: v for k, v in out.items()
+                                      if k != "steps"}))
+    del res, step_fn, batch
+    _free_card()
+    return out
+
+
+def mesh_resume():
+    """At full width and 2 layers on the (1, 1) mesh, ``--steps 6
+    --ckpt-every 3``: (a) straight through the launcher; (b) a fault at
+    step 4, the mesh re-formed by ``mesh_fn`` and the step-3 checkpoint
+    restored onto it; (c) 3 steps, then a fresh process resuming to 6;
+    (b) and (c) end with (a)'s parameters and moments, bit for bit."""
+    import os
+    import shutil
+
+    from repro_torch.checkpoint.store import restore
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.train_loop import FaultInjector, train
+    out = {"argv": TRAIN_CKPT_ARGV}
+
+    def setup(ckpt_dir):
+        return train_cli.setup(train_cli.parser().parse_args(
+            TRAIN_CKPT_ARGV + ["--ckpt-dir", ckpt_dir]))
+
+    _free_card()
+    with _scratch_dir() as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in "abc"}
+        t0 = time.perf_counter()
+        a = train_cli.main(TRAIN_CKPT_ARGV + ["--ckpt-dir", dirs["a"]])
+        out["a"] = {"seconds": time.perf_counter() - t0,
+                    "losses": [h["loss"] for h in a["history"]]}
+        final = _plain({"params": a["params"], "opt": a["opt_state"]})
+        diff = _trees_differ(_plain(restore(
+            dirs["a"], 6, {"params": a["params"], "opt": a["opt_state"]})),
+            final)
+        check(diff is None, f"mesh resume: (a)'s checkpoint restores "
+                            f"differently: {diff}")
+        del a
+        shutil.rmtree(dirs["a"])
+        cfg, opt, loop, data = setup(dirs["b"])
+        meshes = []
+        t0 = time.perf_counter()
+        b = train(cfg, opt, loop, data, fault=FaultInjector(fail_at=4),
+                  mesh_fn=lambda: meshes.append(1) or make_host_mesh())
+        out["b"] = {"seconds": time.perf_counter() - t0,
+                    "failures": b["failures"], "meshes_formed": len(meshes)}
+        check(b["failures"] == 1 and len(meshes) == 2,
+              f"mesh resume (b): {b['failures']} failures, "
+              f"{len(meshes)} meshes")
+        diff = _trees_differ(_plain({"params": b["params"],
+                                     "opt": b["opt_state"]}), final)
+        check(diff is None, f"mesh resume (b) differs from (a): {diff}")
+        del b
+        cfg, opt, loop, data = setup(dirs["c"])
+        c = train(cfg, opt, dataclasses.replace(loop, steps=3), data,
+                  mesh_fn=make_host_mesh)
+        del c
+        _free_card()
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            filter(None, [str(SRC), os.environ.get("PYTHONPATH")])))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train",
+             *TRAIN_CKPT_ARGV, "--ckpt-dir", dirs["c"]],
+            env=env, capture_output=True, text=True, timeout=600)
+        out["c"] = {"resume_process_s": time.perf_counter() - t0,
+                    "resume_stdout": proc.stdout.splitlines()[-4:]}
+        check(proc.returncode == 0 and "resumed from step 3" in proc.stdout,
+              f"mesh resume (c): rc {proc.returncode}: "
+              f"{proc.stdout[-800:]} {proc.stderr[-1500:]}")
+        diff = _trees_differ(_plain(restore(dirs["c"], 6, final)), final)
+        check(diff is None, f"mesh resume (c) differs from (a): {diff}")
+    print("mesh resume " + json.dumps(out))
+    del final
+    _free_card()
+    return out
+
+
+def mesh_prefill(usage: dict):
+    """``make_prefill_step`` of qwen2.5-3b with the kernels at full width
+    on a (1, 4096) prompt, DTensor parameters on the (1, 1) mesh: the
+    logits against the mesh-less kernel path's, the launches of this run
+    alone (``fused_mlp`` and ``flash_attention`` once a layer, 36 each),
+    each kernel against its plain version at these shapes; then
+    ``pipeline_spmd_fn`` at one stage with one full-width decoder layer
+    (the kernels on) as ``stage_fn`` over 4 microbatches, against the
+    layer applied to each."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.hints import to_plain, use_mesh
+    from repro_torch.distributed.pipeline import StageOrg, pipeline_spmd_fn
+    from repro_torch.distributed.sharding import init_sharded
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_model
+    from repro_torch.models.transformer import _layer, _uniform_layer
+    from repro_torch.runtime.steps import make_prefill_step
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), use_kernels=True)
+    mesh = make_host_mesh()
+    cuda = torch.device("cuda")
+    _free_card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    toks = torch.randint(0, cfg.vocab, (1, MESH_PREFILL_S), generator=gen,
+                         device=cuda)
+    step = make_prefill_step(cfg)
+    params = init_sharded(cfg, mesh, seed=0, device=cuda)
+    dtoks = DTensor.from_local(toks, mesh, [Replicate(), Replicate()],
+                               run_check=False)
+    with use_mesh(mesh):
+        step(params, {"tokens": dtoks})              # warm
+    torch.cuda.synchronize()
+    _zero_all_counts()
+    t0 = time.perf_counter()
+    with use_mesh(mesh):
+        logits = step(params, {"tokens": dtoks})
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    launches = _all_launches()
+    logits = to_plain(logits)
+    del params
+    _free_card()
+    plain_params = init_model(cfg, seed=0, device=cuda)
+    step(plain_params, {"tokens": toks})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = step(plain_params, {"tokens": toks})
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    L = cfg.n_layers
+    check(launches["fused_mlp"] == L and launches["flash_attention"] == L
+          and not launches["wkv6"] and not launches["rglru_chunked"]
+          and not launches["maxplus_chunked"] and not launches["price_rows"],
+          f"mesh prefill: launches {launches}, want {L} fused_mlp and {L} "
+          "flash_attention")
+    rel, agree = _rel_logit_diff(logits, want, cfg)
+    out = {"S": MESH_PREFILL_S, "mesh": [1, 1], "launches": launches,
+           "bit_equal": bool(torch.equal(logits, want)),
+           "max_rel_logit_diff": rel, "argmax_agree": agree,
+           "mesh_s": mesh_s, "meshless_s": plain_s}
+    check(rel <= LOGIT_TOL, f"mesh prefill: logits differ from the "
+                            f"mesh-less kernel path by {rel:.3g}")
+    del logits, want
+    out["fused_mlp_row"] = check_fused_mlp(
+        "mesh-prefill", MESH_PREFILL_S, cfg.d_model, cfg.d_ff, "bfloat16")
+    out["flash_row"] = check_flash(
+        "mesh-prefill", 1, MESH_PREFILL_S, MESH_PREFILL_S, cfg.n_heads,
+        cfg.n_kv_heads, cfg.hd, True, 0, "bfloat16", usage)
+    # the stage pipeline at one stage: layer 0 as stage_fn, 4 microbatches
+    layer = _layer(plain_params["layers"], 0)
+    stacked = {k: v for k, v in _stack1(layer).items()}
+    positions = torch.arange(PIPELINE_S, device=cuda)
+
+    def stage_fn(p, x):
+        return _uniform_layer(cfg, x, p, None, positions)[0]
+
+    xs = (torch.randn((4, 1, PIPELINE_S, cfg.d_model), generator=gen,
+                      device=cuda) * 0.5).to(cfg.dtype)
+    run = pipeline_spmd_fn(stage_fn, StageOrg.STRIPED, 1, mesh, 4)
+    with torch.no_grad():
+        _zero_all_counts()
+        ys = run(stacked, xs)
+        pipe_launches = _all_launches()
+        each = torch.stack([stage_fn(layer, xs[k]) for k in range(4)])
+    check(torch.equal(ys, each),
+          "mesh prefill: pipeline_spmd_fn differs from the layer applied "
+          "to each microbatch")
+    check(pipe_launches["fused_mlp"] == 4
+          and pipe_launches["flash_attention"] == 4,
+          f"mesh prefill: pipeline launches {pipe_launches}")
+    out["pipeline"] = {"stages": 1, "microbatches": 4, "S": PIPELINE_S,
+                       "launches": pipe_launches, "bit_equal": True}
+    print("mesh prefill " + json.dumps(
+        {k: v for k, v in out.items() if not k.endswith("_row")}))
+    del plain_params, layer, stacked, xs, ys, each
+    _free_card()
+    return out
+
+
+def _stack1(tree):
+    """A tree of tensors with a leading stage axis of 1."""
+    if isinstance(tree, dict):
+        return {k: _stack1(v) for k, v in tree.items()}
+    return tree[None]
+
+
+def phase_mesh(plain_steps, usage):
+    """The distributed layer on the card: ``mesh_train``, ``mesh_resume``
+    and ``mesh_prefill`` on one NCCL rank."""
+    import os
+
+    import torch.distributed as dist
+    mesh_group()
+    # a world of one rank: the launcher, and the resuming process it
+    # starts, train on the mesh
+    os.environ["WORLD_SIZE"] = "1"
+    try:
+        out = {"train": mesh_train(plain_steps), "resume": mesh_resume(),
+               "prefill": mesh_prefill(usage)}
+    finally:
+        del os.environ["WORLD_SIZE"]
+    dist.destroy_process_group()
+    return out
+
+
 def _expandable_segments() -> None:
     """Let the CUDA caching allocator grow its segments in place, as
     ``repro_torch.launch.train`` does for a process of its own: set
@@ -3253,7 +3627,7 @@ def _leaves(tree):
         yield tree
 
 
-def main() -> None:
+def main() -> dict:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
     sys.path.insert(0, str(SRC))
@@ -3262,6 +3636,22 @@ def main() -> None:
 
     t_start = time.perf_counter()
     smi = phase_device()
+    dryrun = dryrun_start()
+    try:
+        record = _run_phases(smi, dryrun, t_start)
+    finally:
+        if dryrun[0].poll() is None:
+            dryrun[0].kill()
+            dryrun[0].wait()
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return record
+
+
+def _run_phases(smi, dryrun, t_start):
+    """Every phase after ``phase_device``; prints the kernel table and
+    writes the record."""
     usage = phase_build()
     rows, mp_rows, mp_exact, floor_ms = phase_kernels()
     wkv_rows, rg_rows = phase_recurrence_kernels(floor_ms)
@@ -3276,6 +3666,8 @@ def main() -> None:
     planned = phase_serve_planned()
     tenants = phase_tenants()
     train = phase_train()
+    mesh = phase_mesh(train["full"]["steps"], usage)
+    dry = dryrun_finish(dryrun)
 
     main_row = next(r for r in rows
                     if r["shape"] == "decode" and r["dtype"] == "bfloat16")
@@ -3463,6 +3855,17 @@ def main() -> None:
     # plain path as the reference does)
     for k in kernels:
         k["train_launches"] = train["full"]["kernel_launches"][k["name"]]
+    # the mesh path (mesh_prefill): each kernel's launches in that run
+    # alone, and its row at that run's shapes
+    for k in kernels:
+        k["mesh_prefill_launches"] = mesh["prefill"]["launches"][k["name"]]
+    for name, key in (("fused_mlp", "fused_mlp_row"),
+                      ("flash_attention", "flash_row")):
+        k = next(kk for kk in kernels if kk["name"] == name)
+        r = mesh["prefill"][key]
+        k["mesh_prefill"] = {f: r[f] for f in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}
     record = {"card": smi, "kernels": kernels, "fused_mlp_rows": rows,
               "maxplus_rows": mp_rows, "maxplus_exact": mp_exact,
               "price_rows_rows": pr_rows, "price_rows_calls": pr_calls,
@@ -3473,16 +3876,14 @@ def main() -> None:
               "inits": inits,
               "plan": plan, "simulate": sim, "small_reference": small,
               "plan_lm": plan_lm, "serve_planned": planned,
-              "tenants": tenants, "train": train,
-              "seconds": time.perf_counter() - t_start}
+              "tenants": tenants, "train": train, "mesh": mesh,
+              "dryrun": dry, "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(f"total {record['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    return record
 
 
 if __name__ == "__main__":

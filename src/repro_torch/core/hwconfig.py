@@ -64,6 +64,22 @@ TPU_V5E = HWConfig(
     e_rf=1.0, e_hop=8.0, e_sram=2.0, e_dram=64.0,
 )
 
-# The reference's TPU roofline constants (benchmarks/roofline.py,
-# distributed/) are not copied: no module of this slice reads them, and
-# the H100's come with the distributed slice (ROADMAP.md Queue 1).
+# The reference's TPU roofline constants (``PEAK_FLOPS_BF16``, ``HBM_BW``,
+# ``ICI_BW_PER_LINK``, ``ICI_LINKS_PER_CHIP``) price a TPU v5e chip and
+# its ICI links; the port runs on NVIDIA H100 cards joined by NVLink, so
+# its roofline and the pod-level stage placement
+# (``distributed.pipeline.placement_cost``) read the card's constants
+# instead.  Source: NVIDIA H100 Tensor Core GPU datasheet, SXM5 column
+# (dense rates, without sparsity), and the NVLink 4 figures of the
+# NVIDIA Hopper architecture whitepaper (18 links, 900 GB/s in total).
+
+#: dense bf16 tensor-core peak of one H100 SXM, FLOP/s
+H100_PEAK_FLOPS_BF16 = 989e12
+#: HBM3 bandwidth of one H100 SXM, B/s
+H100_HBM_BW = 3.35e12
+#: device memory of one H100 SXM, bytes (80 GB)
+H100_HBM_BYTES = 80e9
+#: NVLink 4 bandwidth of one link, B/s (both directions: 900 GB/s / 18)
+H100_NVLINK_BW_PER_LINK = 50e9
+#: NVLink 4 links of one H100 SXM
+H100_NVLINK_LINKS = 18

@@ -6,8 +6,11 @@ semantics (a learnable arithmetic stream plus 2% noise tokens).  Every
 example is a function of (seed, index) alone, with the reference's numpy
 ``RandomState`` seeding, so the port's batches are the reference's bit
 for bit, and a restart at step k replays the exact global batches.
-``device_batches`` takes the place of the reference's mesh version: one
-host-to-device copy of each global batch onto an explicit device.
+``device_batches`` yields each global batch on a device, or on a mesh
+(``shard_batch``): each rank makes only its rows, the global batch's
+block at its coordinate on the data axes (pod-major, the reference's
+``P(("pod", "data"))`` order), and holds them as a ``Shard(0)`` DTensor
+over those axes; no rank materializes the global batch.
 """
 from __future__ import annotations
 
@@ -17,7 +20,9 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.hints import batch_axes, placements
 from repro_torch.models.common import DeviceLike, resolve_device
 
 
@@ -87,12 +92,47 @@ def to_device(host: Dict[str, np.ndarray], device: torch.device
             for k, v in host.items()}
 
 
+def data_shard(mesh) -> tuple:
+    """(this rank's index, the count) of the data shards of ``mesh``:
+    its coordinate on the data axes, pod-major."""
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    index, count = 0, 1
+    for a in batch_axes(mesh):
+        n = mesh.size(names.index(a))
+        index, count = index * n + coord[names.index(a)], count * n
+    return index, count
+
+
+def shard_batch(ds: TokenDataset, step: int, mesh, device: DeviceLike = None
+                ) -> Dict[str, torch.Tensor]:
+    """The global batch at ``step`` as DTensors on ``mesh``: rows over the
+    data axes where the batch divides them (each rank making its rows
+    alone), else every rank holding all of it."""
+    dev = resolve_device(device or mesh.device_type)
+    index, count = data_shard(mesh)
+    daxes = batch_axes(mesh)
+    if ds.cfg.global_batch % count == 0:
+        host = ds.shard_batch_at(step, index, count)
+        pl = placements((daxes, None), mesh)
+    else:
+        host = ds.global_batch_at(step)
+        pl = placements((None, None), mesh)
+    return {k: DTensor.from_local(v, mesh, pl, run_check=False)
+            for k, v in to_device(host, dev).items()}
+
+
 def device_batches(ds: TokenDataset, device: DeviceLike = None,
-                   start_step: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
+                   start_step: int = 0, mesh=None
+                   ) -> Iterator[Dict[str, torch.Tensor]]:
     """Yield the global batches from ``start_step`` on, on ``device``
-    (``cuda`` unless the caller names another)."""
-    dev = resolve_device(device)
+    (``cuda`` unless the caller names another), or with ``mesh`` as its
+    DTensors (``shard_batch``)."""
+    dev = None if mesh is not None else resolve_device(device)
     step = start_step
     while True:
-        yield to_device(ds.global_batch_at(step), dev)
+        if mesh is not None:
+            yield shard_batch(ds, step, mesh, device)
+        else:
+            yield to_device(ds.global_batch_at(step), dev)
         step += 1

@@ -33,6 +33,8 @@ import functools
 
 import torch
 
+from repro_torch.distributed.hints import dtensor_local
+
 from . import build
 
 #: the reference kernel's masked score (``flash_attention.py:23``)
@@ -185,10 +187,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 
 
+@dtensor_local([("batch", None, "model", None)] * 3,
+               [("batch", None, "model", None)])
 def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B, S, H, hd); k/v: (B, T, Hkv, hd), H a multiple of Hkv ->
-    (B, S, H, hd) in q's dtype.  window <= 0 means unbounded."""
+    (B, S, H, hd) in q's dtype.  window <= 0 means unbounded.  Given
+    DTensors, each rank runs its rows (over the data axes) and its heads
+    (over the model axis, where H and Hkv both divide it)."""
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError("attention_op takes q (B, S, H, hd) and k, v "
                          f"(B, T, Hkv, hd), got {tuple(q.shape)}, "

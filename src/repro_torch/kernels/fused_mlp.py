@@ -32,6 +32,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.distributed.hints import dtensor_local
+
 from . import build
 
 #: kernel dtype codes of ``fused_mlp_launch``
@@ -194,9 +196,16 @@ def _plan(index: int, T: int, D: int, F: int, dtype: torch.dtype):
     return _REGIMES[regime], tile, n_split, per, ws
 
 
+@dtensor_local([("batch", None), (None, "model"), (None, "model"),
+                ("model", None)], [("batch", None)])
 def fused_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
               w_down: torch.Tensor) -> torch.Tensor:
-    """x: (T, D); w_gate/w_up: (D, F); w_down: (F, D) -> (T, D) in x.dtype."""
+    """x: (T, D); w_gate/w_up: (D, F); w_down: (F, D) -> (T, D) in x.dtype.
+
+    Given DTensors (a mesh), each rank runs the kernel on its rows (T
+    over the data axes) and its slice of F (over the model axis, where F
+    divides it; the weights' FSDP shards gathered first), and the
+    output is the sum of the model ranks' parts."""
     if x.ndim != 2 or w_gate.ndim != 2 or w_up.ndim != 2 or w_down.ndim != 2:
         raise ValueError("fused_mlp takes x (T, D), w_gate/w_up (D, F) and "
                          "w_down (F, D)")

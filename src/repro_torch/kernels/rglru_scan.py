@@ -33,7 +33,17 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.hints import dtensor_local
+
 from . import build
+
+#: on a mesh each rank runs its rows (over the data axes) and its
+#: channels (over the model axis): the recurrence is diagonal
+_CHANNELS = dtensor_local(
+    [("batch", None, "model"), ("batch", None, "model"),
+     lambda h0: ("batch", "model") if h0.ndim == 2
+     else ("batch", None, "model")],
+    [("batch", None, "model")] * 2)
 
 #: calls of fewer steps (every decode call) run the step regime
 SPLIT_MIN = 64
@@ -71,6 +81,7 @@ def split_plan(B: int, T: int, W: int, sms: int) -> Tuple[int, int]:
     return (fits[0] if fits else groups[-1]), segments(T)
 
 
+@_CHANNELS
 def rglru_ref(a: torch.Tensor, b: torch.Tensor,
               h0: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -141,6 +152,7 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@_CHANNELS
 def rglru_chunked(a: torch.Tensor, b: torch.Tensor,
                   h0: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:

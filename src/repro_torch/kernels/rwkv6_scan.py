@@ -29,7 +29,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.hints import dtensor_local
+
 from . import build
+
+#: on a mesh each rank runs its (batch x head) rows: the recurrence is
+#: independent from row to row
+_ROWS = dtensor_local([("batch", None, None)] * 6, [("batch", None, None)] * 2)
 
 #: head sizes the kernel is instantiated for (RWKV-6 uses 64)
 HEAD_SIZES = (32, 64)
@@ -64,6 +70,7 @@ def value_split(BH: int, N: int, sms: int) -> int:
     return min(fits) if fits else max(nv for nv in VALUE_SPLITS if nv <= N)
 
 
+@_ROWS
 def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              w: torch.Tensor, u: torch.Tensor,
              s0: Optional[torch.Tensor] = None
@@ -150,6 +157,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@_ROWS
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          w: torch.Tensor, u: torch.Tensor,
          s0: Optional[torch.Tensor] = None

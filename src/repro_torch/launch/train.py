@@ -8,25 +8,42 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
         --steps 6 --batch 8 --seq 4096
 
+    # on a mesh of N cards (or N CPU processes with --device cpu):
+    PYTHONPATH=src torchrun --nproc-per-node N \
+        -m repro_torch.launch.train --arch qwen2.5-3b --steps 6 \
+        --batch 8 --seq 4096
+
 Trains ``--arch`` from random weights (seed 0) on synthetic tokens with
 ``runtime.train_loop.train``, on the card unless ``--device`` names
-another.  Microbatches: ``pick_microbatches(cfg, batch, 1)`` at full
-width (one card: one data shard), ``min(2, batch)`` with ``--smoke``,
-as the reference's launcher.  Prints the reference's ``step ... loss
-... gnorm ...`` lines every ``--log-every`` steps, its ``finished``
-line, then the tokens per second of the loop.  There is no
-``--multipod``: meshes wait for the port's distributed slice.  The vlm
-and encoder-decoder archs do not train (see ``runtime.train_loop``).
+another.  When ``WORLD_SIZE`` is set (``torchrun`` sets it; a single
+process may set ``WORLD_SIZE=1``), or with ``--multipod``, it trains on
+a mesh (``launch.mesh``; NCCL on ``cuda``, gloo on ``cpu``): the
+production mesh when the world has its size (256 ranks, or 512 with
+``--multipod``), else the host mesh (world, 1), (1, 1) on one card;
+``--multipod`` on a world of another size raises before joining a
+group.  Microbatches: ``pick_microbatches(cfg, batch, data shards)``
+at full width, ``min(2, batch)`` with ``--smoke``, as the reference's
+launcher.  Prints (rank 0) the reference's ``step ... loss ... gnorm
+...`` lines every ``--log-every`` steps, its ``finished`` line, then the
+tokens per second of the loop.  The vlm and encoder-decoder archs do
+not train (see ``runtime.train_loop``).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import math
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
+import torch.distributed as dist
+
 from repro_torch.configs import ARCHS, SHAPES, get_config
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.launch.mesh import (data_size, make_host_mesh,
+                                     make_production_mesh, process_group,
+                                     production_shape)
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.steps import pick_microbatches
@@ -69,13 +86,25 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs on the "
                          "CPU)")
+    ap.add_argument("--multipod", action="store_true",
+                    help="the 2 x 16 x 16 production mesh (512 ranks)")
     return ap
 
 
-def setup(args: argparse.Namespace
+def mesh_for(multi_pod: bool):
+    """The launcher's mesh over the default group: the production mesh
+    with ``multi_pod`` or when the world has its 256 ranks (it raises on
+    any other size), else the host mesh."""
+    shape, _ = production_shape(multi_pod)
+    if multi_pod or dist.get_world_size() == math.prod(shape):
+        return make_production_mesh(multi_pod=multi_pod)
+    return make_host_mesh()
+
+
+def setup(args: argparse.Namespace, dp: int = 1
           ) -> Tuple[ModelConfig, AdamWConfig, TrainLoopConfig, DataConfig]:
-    """The run ``args`` (from ``parser()``) describe: (model config,
-    optimizer, loop, data)."""
+    """The run ``args`` (from ``parser()``) describe on ``dp`` data
+    shards: (model config, optimizer, loop, data)."""
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.layers is not None:
         if args.layers < 1:
@@ -91,7 +120,7 @@ def setup(args: argparse.Namespace
         steps=args.steps, ckpt_every=args.ckpt_every,
         ckpt_dir=args.ckpt_dir, log_every=args.log_every,
         microbatches=(min(2, batch) if args.smoke
-                      else pick_microbatches(cfg, batch, 1)))
+                      else pick_microbatches(cfg, batch, dp)))
     return cfg, opt_config(args.steps, args.lr), loop, data
 
 
@@ -105,20 +134,32 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
     args = parser().parse_args(argv)
-    cfg, opt, loop, data = setup(args)
+    mesh, mesh_fn, dp, rank = None, None, 1, 0
+    if args.multipod or "WORLD_SIZE" in os.environ:
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if args.multipod and world != 512:
+            raise ValueError(f"--multipod needs 512 ranks (a 2 x 16 x 16 "
+                             f"mesh); the world has {world}")
+        process_group(args.device)
+        rank = dist.get_rank()
+        mesh_fn = functools.partial(mesh_for, args.multipod)
+        mesh = mesh_fn()
+        dp = data_size(mesh)
+    cfg, opt, loop, data = setup(args, dp)
     batch, seq = data.global_batch, data.seq_len
+    say = print if rank == 0 else (lambda *a, **k: None)
     out = train(cfg, opt, loop, data,
-                on_metrics=lambda s, m: print(
+                on_metrics=lambda s, m: say(
                     f"step {s:5d}  loss {m['loss']:.4f}  "
                     f"gnorm {m['grad_norm']:.3f}"),
-                device=args.device)
-    print(f"finished: {len(out['history'])} logged steps, "
-          f"{out['failures']} recovered failures")
+                device=args.device, mesh_fn=mesh_fn, mesh=mesh)
+    say(f"finished: {len(out['history'])} logged steps, "
+        f"{out['failures']} recovered failures")
     tokens = out["steps_run"] * batch * seq
-    print(f"{tokens} tokens in {out['seconds']:.3f} s: "
-          f"{tokens / out['seconds']:.1f} tokens/s "
-          f"({loop.microbatches} microbatches of {batch // loop.microbatches}"
-          f" x {seq})")
+    say(f"{tokens} tokens in {out['seconds']:.3f} s: "
+        f"{tokens / out['seconds']:.1f} tokens/s "
+        f"({loop.microbatches} microbatches of {batch // loop.microbatches}"
+        f" x {seq})")
     return out
 
 

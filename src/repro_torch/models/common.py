@@ -14,6 +14,9 @@ import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.hints import hint
 
 Params = Dict[str, Any]
 DeviceLike = Union[str, torch.device, None]
@@ -144,7 +147,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     freqs = rope_freqs(hd, theta, x.device)                # (hd/2,)
     sec_ids = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))           # (hd/2,)
+        torch.tensor(sections, device=x.device),
+        output_size=hd // 2)                               # (hd/2,)
     pos = positions.float()[..., sec_ids]                  # (..., S, hd/2)
     angles = (pos * freqs)[..., None, :]                   # (..., S, 1, hd/2)
     sin, cos = torch.sin(angles), torch.cos(angles)
@@ -180,6 +184,33 @@ def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,
     return w.mul_(s).to(dtype)
 
 
+def _label_logits(logits: DTensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's logit at its label, on a mesh.  Logits whose vocab
+    lies whole on each rank take the gather of the plain path on each
+    rank's rows; vocab-sharded logits select it by the vocab ids sharded
+    like their last dim, and the sum over the vocab (one term, the rest
+    exact zeros) is reduced over the model axis.  DTensor's ``gather``
+    would do the same forward, but its backward scatters into a
+    replicated zero tensor of the global logits' size (80 GB a rank at
+    qwen2.5-3b's train_4k)."""
+    from repro_torch.distributed.hints import local_call
+    from repro_torch.distributed.sharding import NamedSharding, from_full
+    mesh = logits.device_mesh
+    V = logits.shape[-1]
+    spec = tuple(n for i, (n, p) in enumerate(zip(mesh.mesh_dim_names,
+                                                  logits.placements))
+                 if p.is_shard(logits.ndim - 1) and mesh.size(i) > 1)
+    if not spec:
+        return local_call(
+            lambda lg, y: torch.gather(lg, -1, y[..., None].long())[..., 0],
+            [logits, labels], [("batch", None, None), ("batch", None)],
+            [("batch", None)])
+    ids = from_full(torch.arange(V, device=logits.to_local().device),
+                    NamedSharding(mesh, (spec,)))
+    hit = labels[..., None].long() == ids
+    return hint(torch.where(hit, logits, 0.0).sum(-1), "batch", None)
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        z_loss: float = 1e-4) -> torch.Tensor:
     """Mean token cross-entropy with the z-loss ``z_loss * lse**2``, in
@@ -187,7 +218,10 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     and add nothing to the log-sum-exp."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if isinstance(logits, DTensor):
+        ll = _label_logits(logits, labels)
+    else:
+        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * torch.square(lse)

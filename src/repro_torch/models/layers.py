@@ -24,7 +24,10 @@ import math
 from typing import Optional, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
+from repro_torch.distributed.hints import (axis_sizes, current_mesh, hint,
+                                           local_call, write_slice)
 from repro_torch.kernels.flash_attention import attention_op
 from repro_torch.kernels.fused_mlp import mlp_block
 
@@ -58,24 +61,103 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
+def _model_size() -> int:
+    mesh = current_mesh()
+    return axis_sizes(mesh).get("model", 1) if mesh is not None else 1
+
+
 def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    B, S, _ = x.shape
     hd = cfg.hd
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
-    return q, k, v
+    m = _model_size()
+    return (_heads(q, cfg.n_heads, hd, cfg.n_heads % m == 0),
+            _heads(k, cfg.n_kv_heads, hd, cfg.n_kv_heads % m == 0),
+            _heads(v, cfg.n_kv_heads, hd, cfg.n_kv_heads % m == 0))
+
+
+def _heads(t: torch.Tensor, n: int, hd: int, tp: bool) -> torch.Tensor:
+    """(B, S, n hd) -> (B, S, n, hd), on a mesh hinted heads over the
+    model axis when ``tp`` (the n heads divide it), else gathered.  The
+    reference hints the flat n hd dim and lets GSPMD reshard; DTensor
+    cannot split a sharded dim into heads that do not divide the axis,
+    so the head count decides."""
+    B, S, _ = t.shape
+    t = hint(t, "batch", None, "model" if tp else None)
+    return t.reshape(B, S, n, hd)
+
+
+#: attention's layouts on a mesh (``_by_heads``, ``_sdpa_keys``,
+#: ``_sdpa_chunked``): each rank its rows (batch over the data axes) and
+#: its heads, or every head, or its block of the sequence.  DTensor has
+#: no rule for the grouped einsum's merged (batch x head) dims or for a
+#: softmax over a sharded dim, so attention's core is a local region.
+_HEADS = ("batch", None, "model", None)
+_ROWS = ("batch", None, None, None)
+_SEQ = ("batch", "model", None, None)
+
+
+def _merge(out: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, H hd).  On a mesh whose model axis the H
+    heads do not divide, a local region: the gradient reaches the flat
+    dim sharded like the next product's rows, and DTensor cannot view
+    that back into the heads."""
+    if isinstance(out, DTensor) and out.shape[2] % _model_size():
+        return local_call(lambda t: t.flatten(2), [out], [_ROWS],
+                          [("batch", None, None)])
+    return out.flatten(2)
+
+
+def _q_heads(H: int, Hkv: int, m: int) -> bool:
+    """Whether the q heads split over a model axis of m ranks with each
+    rank's heads in one GQA group (the kv heads do not divide m)."""
+    return H % m == 0 and (H // Hkv) % (H // m) == 0
+
+
+def _by_heads(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              extra, extra_axes, **kwargs) -> torch.Tensor:
+    """``fn(q, k, v, *extra, **kwargs)`` on each rank's rows and heads:
+    every head split over the model axis where the kv heads divide it;
+    else the q heads, each rank reading the one kv head of its GQA group
+    (the reference's scores, hinted over the q heads); else every head on
+    every rank."""
+    mesh = current_mesh() or q.device_mesh
+    m = axis_sizes(mesh).get("model", 1)
+    H, Hkv = q.shape[2], k.shape[2]
+    if Hkv % m == 0 or not _q_heads(H, Hkv, m):
+        axes = _HEADS if Hkv % m == 0 else _ROWS
+        return local_call(fn, [q, k, v, *extra], [axes] * 3 + extra_axes,
+                          [axes], **kwargs)
+    first = mesh.get_local_rank("model") * (H // m) // (H // Hkv)
+
+    def group(q, k, v, *extra, **kwargs):
+        return fn(q, k[:, :, first:first + 1].contiguous(),
+                  v[:, :, first:first + 1].contiguous(), *extra, **kwargs)
+
+    return local_call(group, [q, k, v, *extra],
+                      [_HEADS, _ROWS, _ROWS] + extra_axes, [_HEADS], **kwargs)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """(B,S,H,hd) x (B,T,Hkv,hd) -> (B,S,H,hd); GQA via head grouping."""
+    """(B,S,H,hd) x (B,T,Hkv,hd) -> (B,S,H,hd); GQA via head grouping.
+    On a mesh, a local region per rank: by heads (``_by_heads``), or by
+    keys (``_sdpa_keys``) where neither the kv heads nor the q heads
+    split, or where the keys already lie split over their sequence (a
+    decode cache)."""
+    if isinstance(q, DTensor):
+        m = _model_size()
+        H, T, Hkv = q.shape[2], k.shape[1], k.shape[2]
+        seq_cache = isinstance(k, DTensor) and any(
+            p == Shard(1) for p in k.placements)
+        if Hkv % m and T % m == 0 and (seq_cache or not _q_heads(H, Hkv, m)):
+            return _sdpa_keys(q, k, v, mask, cfg)
+        return _by_heads(_sdpa, q, k, v, [mask], [("batch", None, None)],
+                         cfg=cfg)
     B, S, H, hd = q.shape
     G = H // k.shape[2]
     q = q.reshape(B, S, k.shape[2], G, hd)
@@ -87,15 +169,73 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, hd)
 
 
+def _softmax_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: torch.Tensor, cfg: ModelConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_sdpa`` over a block of the keys, unnormalised: the weights
+    exp(score - row max) times v (B, S, H, hd), the row max and the sum
+    of the weights (B, S, H), each with a leading dim of 1."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    q = q.reshape(B, S, Hkv, H // Hkv, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", q, k).float()
+    scores = scores / math.sqrt(hd)
+    scores = torch.where(mask[:, None, None, :, :], scores, -1e30)
+    top = scores.amax(dim=-1, keepdim=True)
+    w = torch.exp(scores - top)
+    num = torch.einsum("bkgst,btkh->bskgh", w.to(v.dtype), v)
+
+    def rows(t):                                   # (B,Hkv,G,S) -> (B,S,H)
+        return t.permute(0, 3, 1, 2).reshape(B, S, H)[None]
+
+    return (num.reshape(B, S, H, hd)[None], rows(top[..., 0]),
+            rows(w.sum(dim=-1)))
+
+
+def _sdpa_keys(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``_sdpa`` on a mesh with the keys split over the model axis (the
+    reference's fallback, its scores hinted over the key sequence): each
+    rank the softmax's parts over its keys (``_softmax_parts``), combined
+    by the ranks' largest row max.  The result is the softmax's to
+    rounding; the max only steadies the exponentials, so its gradient is
+    not taken."""
+    part = ("model", "batch", None, None)
+    num, top, den = local_call(
+        _softmax_parts, [q, k, v, mask],
+        [_ROWS, _SEQ, _SEQ, ("batch", None, "model")],
+        [part + (None,), part, part], cfg=cfg)
+    w = torch.exp(top - top.amax(dim=0).detach())
+    out = (num * w[..., None]).sum(dim=0) / (den * w).sum(dim=0)[..., None]
+    return hint(out.to(v.dtype), *_ROWS)
+
+
 def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  cfg: ModelConfig, window: int, chunk: int = 512
-                  ) -> torch.Tensor:
+                  cfg: ModelConfig, window: int, chunk: int = 512,
+                  first_row: int = 0) -> torch.Tensor:
     """Chunked causal attention without an S x T score matrix (port of
     the reference's ``_sdpa_chunked``, the einsum counterpart of the
     flash kernel).  Query chunks run in order; a local layer slices only
     the ``window + chunk`` keys a chunk can see.  window <= 0 means
     unbounded.  Rounding as in ``_sdpa``: scores in the working type,
-    then fp32 for the softmax, weights cast to v's type."""
+    then fp32 for the softmax, weights cast to v's type.  ``first_row``:
+    the position of q's first row among the keys'.
+
+    On a mesh, a local region per rank: by heads (``_by_heads``) where
+    the kv heads or the q heads split; else each rank its block of the
+    query rows against every key.  (The reference hints a chunk's scores
+    over its key slice; a chunk's slice follows its rows, so the port
+    splits the rows, with the same work a rank.)"""
+    if isinstance(q, DTensor):
+        m = _model_size()
+        H, S, Hkv = q.shape[2], q.shape[1], k.shape[2]
+        if Hkv % m and not _q_heads(H, Hkv, m) and S % m == 0:
+            first = current_mesh().get_local_rank("model") * (S // m)
+            return local_call(_sdpa_chunked, [q, k, v],
+                              [_SEQ, _ROWS, _ROWS], [_SEQ], cfg=cfg,
+                              window=window, chunk=chunk, first_row=first)
+        return _by_heads(_sdpa_chunked, q, k, v, [], [], cfg=cfg,
+                         window=window, chunk=chunk)
     B, S, H, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -107,9 +247,10 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w_eff = window if window and 0 < window < T else T
     ksz = min(T, w_eff + chunk)
     outs = []
-    for q0 in range(0, S, chunk):
+    for q0 in range(first_row, first_row + S, chunk):
         k0 = min(max(q0 + chunk - ksz, 0), T - ksz)
-        qg = q[:, q0:q0 + chunk].reshape(B, chunk, Hkv, G, hd)
+        qg = q[:, q0 - first_row:q0 - first_row + chunk].reshape(
+            B, chunk, Hkv, G, hd)
         kc, vc = k[:, k0:k0 + ksz], v[:, k0:k0 + ksz]
         qpos = q0 + torch.arange(chunk, device=q.device)[:, None]
         kpos = k0 + torch.arange(ksz, device=q.device)[None, :]
@@ -127,9 +268,16 @@ def _place(cache: torch.Tensor, new: torch.Tensor, index: Index) -> None:
     """Write ``new`` (B, S, ...) into ``cache`` (B, T, ...) in place, at
     ``index`` (an int, or a (B,) tensor of per-row starts).  Starts are
     clamped to [0, T - S] as the reference's ``dynamic_update_slice``
-    clamps them."""
+    clamps them.  On a mesh each rank writes into its shard of the cache
+    (``write_slice``); per-row starts are a single device's (the serving
+    engine's)."""
     S, T = new.shape[1], cache.shape[1]
     new = new.to(cache.dtype)
+    if isinstance(cache, DTensor):
+        if isinstance(index, torch.Tensor):
+            raise NotImplementedError("per-row cache starts on a mesh")
+        write_slice(cache, 1, min(max(index, 0), T - S), new)
+        return
     if isinstance(index, torch.Tensor):
         start = torch.clamp(index, 0, T - S)
         rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
@@ -219,7 +367,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
             _place(cv, v, slot)
             mask = _ring_mask(positions, T, T if window is None else window)
             out = _sdpa(q, ck, cv, mask, cfg)
-            return out.reshape(B, S, -1) @ p["wo"]
+            return _merge(out) @ p["wo"]
         if cfg.kv_quant:
             # int8 cache with per-vector scales: quantize the new slice,
             # dequantize the whole cache on read
@@ -249,11 +397,14 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
         if cfg.use_kernels:
             # the flash kernel: q tile, running max and sum and the fp32
             # accumulator stay on chip across the kv sweep
-            out = attention_op(q, k, v, causal=causal, window=window or 0)
-            return out.reshape(B, S, -1) @ p["wo"]
+            out = (_by_heads(attention_op, q, k, v, [], [], causal=causal,
+                             window=window or 0)
+                   if isinstance(q, DTensor) else
+                   attention_op(q, k, v, causal=causal, window=window or 0))
+            return _merge(out) @ p["wo"]
         if causal and S >= CHUNKED_ATTN_THRESHOLD:
             out = _sdpa_chunked(q, k, v, cfg, window or 0)
-            return out.reshape(B, S, -1) @ p["wo"]
+            return _merge(out) @ p["wo"]
         i = torch.arange(S, device=x.device)[:, None]
         j = torch.arange(S, device=x.device)[None, :]
         mask = (j <= i if causal
@@ -263,7 +414,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
         mask = mask[None].expand(B, S, S)
 
     out = _sdpa(q, k, v, mask, cfg)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return _merge(out) @ p["wo"]
 
 
 def init_cross_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -288,7 +439,7 @@ def cross_attention(p: Params, x: torch.Tensor, enc: torch.Tensor,
     else:
         mask = torch.ones((B, S, T), dtype=torch.bool, device=x.device)
         out = _sdpa(q, k, v, mask, cfg)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return _merge(out) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------
@@ -312,7 +463,8 @@ def swiglu(p: Params, x: torch.Tensor,
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return h @ p["w_down"]
+    h = hint(h, "batch", None, "model")
+    return hint(h @ p["w_down"], "batch", None, None)
 
 
 def init_gelu_mlp(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -332,6 +484,7 @@ def gelu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     has no kernel for it, so neither has the port."""
     h = x @ p["w_in"] + p["b_in"]
     h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
+    h = hint(h, "batch", None, "model")
     return h @ p["w_out"] + p["b_out"]
 
 
@@ -412,28 +565,55 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
     same bits on the card too."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    C = moe_capacity(cfg, S)
+    if isinstance(x, DTensor):
+        return _moe_ffn_dtensor(p, x, cfg)
     probs, gate, idx = moe_route(p, x, cfg)
 
     me = probs.mean(dim=(0, 1))
-    ce = torch.bincount(idx.reshape(-1), minlength=E).float() / (B * S * K)
+    ce = _expert_counts(idx, E) / (B * S * K)
     aux = E * torch.sum(me * ce)
+    return _moe_experts(p, x, cfg, gate, idx), aux
 
+
+def _expert_counts(idx: torch.Tensor, E: int) -> torch.Tensor:
+    """(E,) float32 count of each expert id in ``idx`` (``bincount``'s,
+    with a shape that does not depend on the data)."""
+    flat = idx.reshape(-1)
+    return torch.zeros(E, dtype=torch.long, device=idx.device).scatter_add_(
+        0, flat, torch.ones_like(flat)).float()
+
+
+def _moe_gather(x: torch.Tensor, idx: torch.Tensor, C: int, E: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch of ``moe_ffn``: each expert's (C, D) buffer of its tokens
+    (zeros in empty slots), (B, E, C, D), and each (token, k)'s slot."""
     tok1, slot = moe_dispatch(idx, E, C)
-    rows = torch.arange(B, device=x.device)
+    rows = torch.arange(x.shape[0], device=x.device)
     xe = (x[rows[:, None, None], torch.clamp(tok1 - 1, min=0)]
-          * (tok1 > 0)[..., None].to(x.dtype))              # (B, E, C, D)
-    g = torch.einsum("becd,edf->becf", xe, p["w_gate"])
-    u = torch.einsum("becd,edf->becf", xe, p["w_up"])
-    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    ye = torch.einsum("becf,efd->becd", h, p["w_down"])
+          * (tok1 > 0)[..., None].to(x.dtype))
+    return xe, slot
 
-    # combine: each token's kept contributions, scaled by their gates (the
-    # reference's product of a slot's output and its gate in the
-    # activation dtype), in ascending expert order
+
+def _moe_products(xe: torch.Tensor, w_gate: torch.Tensor,
+                  w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """The experts' three products over their buffers, silu in float32."""
+    g = torch.einsum("becd,edf->becf", xe, w_gate)
+    u = torch.einsum("becd,edf->becf", xe, w_up)
+    h = torch.nn.functional.silu(g.float()).to(xe.dtype) * u
+    return torch.einsum("becf,efd->becd", h, w_down)
+
+
+def _moe_combine(ye: torch.Tensor, gate: torch.Tensor, idx: torch.Tensor,
+                 slot: torch.Tensor) -> torch.Tensor:
+    """Each token's kept contributions, scaled by their gates (the
+    reference's product of a slot's output and its gate in the activation
+    dtype), summed in ascending expert order."""
+    B, E, C, D = ye.shape
+    K = idx.shape[-1]
+    rows = torch.arange(B, device=ye.device)
     idx_s, perm = torch.sort(idx, dim=-1)
     slot_s = torch.gather(slot, -1, perm)
-    gate_s = torch.gather(gate, -1, perm).to(x.dtype)
+    gate_s = torch.gather(gate, -1, perm).to(ye.dtype)
     flat = idx_s * C + torch.clamp(slot_s, max=C - 1)        # (B, S, K)
     contrib = (ye.reshape(B, E * C, D)[rows[:, None, None], flat]
                * gate_s[..., None])
@@ -441,4 +621,52 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
     y = contrib[:, :, 0]
     for k in range(1, K):
         y = y + contrib[:, :, k]
-    return y, aux
+    return y
+
+
+def _moe_experts(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 gate: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Dispatch, the experts' products and the combine of ``moe_ffn``."""
+    xe, slot = _moe_gather(x, idx, moe_capacity(cfg, x.shape[1]),
+                           cfg.n_experts)
+    ye = _moe_products(xe, p["w_gate"], p["w_up"], p["w_down"])
+    return _moe_combine(ye, gate, idx, slot)
+
+
+def _moe_ffn_dtensor(p: Params, x: DTensor, cfg: ModelConfig
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_ffn`` on a mesh.  DTensor has no sharding rule for the
+    routing's sort, scatter and bincount or the combine's gather, so
+    each rank routes, dispatches and combines its own rows (batch over
+    the data axes) in local regions, the small router replicated.  The
+    expert products run with the experts split over the model axis (the
+    reference's EP, its ``xe`` hinted over "model"): each rank takes its
+    experts' buffers and weights, and the combine gathers the experts'
+    outputs over the model axis.  Where E does not divide that axis,
+    every rank runs every expert.  The load-balance loss is formed from
+    the ranks' summed probabilities and counts, so it is the global
+    batch's."""
+    B, S, _ = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = moe_capacity(cfg, S)
+
+    def route(x, router):
+        probs, gate, idx = moe_route({"router": router}, x, cfg)
+        xe, slot = _moe_gather(x, idx, C, E)
+        return (xe, gate, idx, slot, probs.sum(dim=(0, 1)),
+                _expert_counts(idx, E))
+
+    rows = ("batch", None, None)
+    buffers = ("batch", None, None, None)
+    xe, gate, idx, slot, psum, counts = local_call(
+        route, [x, p["router"]], [rows, (None, None)],
+        [buffers, rows, rows, rows, (None,), (None,)])
+    experts = ("model", None, None)
+    ye = local_call(_moe_products,
+                    [xe, p["w_gate"], p["w_up"], p["w_down"]],
+                    [("batch", "model", None, None)] + [experts] * 3,
+                    [("batch", "model", None, None)])
+    y = local_call(_moe_combine, [ye, gate, idx, slot],
+                   [buffers, rows, rows, rows], [rows])
+    aux = E * torch.sum((psum / (B * S)) * (counts / (B * S * K)))
+    return hint(y, "batch", None, None), aux

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.hints import hint
 from repro_torch.kernels.rglru_scan import rglru_chunked, rglru_ref
 
 from .common import ModelConfig, Params, dense_init
@@ -101,12 +102,12 @@ def recurrent_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                     state: Optional[State] = None
                     ) -> Tuple[torch.Tensor, State]:
     """Griffin recurrent block.  state = (conv_state, h) for decode.
-
-    The reference marks ``gate`` and ``u`` with sharding hints; on one
-    card they are the identity, so the port has none."""
+    ``gate`` and ``u`` carry the reference's sharding hints (width over
+    the model axis on a mesh)."""
     gate = torch.nn.functional.gelu((x @ p["w_y"]).float(),
                                     approximate="tanh").to(x.dtype)
-    u = x @ p["w_x"]
+    gate = hint(gate, "batch", None, "model")
+    u = hint(x @ p["w_x"], "batch", None, "model")
     conv_state = state[0] if state is not None else None
     u, new_conv = _causal_conv1d(u, p["conv_w"], p["conv_b"], conv_state)
     y, h = rg_lru(p, u, state[1] if state is not None else None,

@@ -12,13 +12,25 @@ length (a prompt in prefill, T = 1 with the cached state in decode) when
 ``cfg.use_kernels`` is set, else to its plain version ``wkv6_ref``.
 Given a ``state``, ``time_mix`` and ``channel_mix`` write the new state
 into those tensors in place and return them.
+
+On a mesh (DTensor inputs) the projections are tensor parallel, as
+the parameters' shardings make them in the reference: ``time_mix``'s
+token shift and low-rank lerp run on each rank's rows (their small
+weights gathered), its five projections give each rank its columns,
+the recurrence and the group norm run on each rank's heads (a local
+region: DTensor has no rule for the step loop), and ``w_o``'s rows are
+summed over the model axis; ``channel_mix`` is a column- then
+row-split product.  A state is written back in place whatever its
+placements.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.hints import hint, local_call
 from repro_torch.kernels.rwkv6_scan import wkv6, wkv6_ref
 
 from .common import ModelConfig, Params, dense_init
@@ -97,32 +109,70 @@ def _wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             s_last.reshape(B, H, N, N))
 
 
-def time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
-             state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-             ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """RWKV6 attention replacement.  state = (last_token, S)."""
-    B, S, D = x.shape
+def _time_mix_heads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    g: torch.Tensor, w: torch.Tensor,
+                    decay_bias: torch.Tensor, bonus_u: torch.Tensor,
+                    ln_x_scale: torch.Tensor, s0: Optional[torch.Tensor],
+                    use_kernels: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``time_mix`` from its five projections (B, S, D) to the gated,
+    group-normed output before ``w_o``, and the last state: per head, so
+    that on a mesh each rank runs its own heads."""
+    B, S, D = r.shape
     H, N = D // HEAD_SIZE, HEAD_SIZE
-    last = state[0] if state is not None else None
-    shifted = _token_shift(x, last)
-    xr, xk, xv, xw, xg = _ddlerp(p, x, shifted)
-
-    r = (xr @ p["w_r"]).reshape(B, S, H, N)
-    k = (xk @ p["w_k"]).reshape(B, S, H, N)
-    v = (xv @ p["w_v"]).reshape(B, S, H, N)
-    g = torch.nn.functional.silu((xg @ p["w_g"]).float()).to(x.dtype)
-    decay_raw = (xw @ p["w_decay"]).float() + p["decay_bias"]
+    g = torch.nn.functional.silu(g.float()).to(r.dtype)
+    decay_raw = w.float() + decay_bias
     w = torch.exp(-torch.exp(decay_raw)).reshape(B, S, H, N)  # in (0,1)
-
-    y, s_last = _wkv(r.float(), k.float(), v.float(), w, p["bonus_u"],
-                     state[1] if state is not None else None,
-                     cfg.use_kernels)
+    y, s_last = _wkv(r.reshape(B, S, H, N).float(),
+                     k.reshape(B, S, H, N).float(),
+                     v.reshape(B, S, H, N).float(), w, bonus_u, s0,
+                     use_kernels)
     # per-head group norm (population variance, as jnp.var)
     mean = y.mean(-1, keepdim=True)
     var = torch.var(y, dim=-1, keepdim=True, correction=0)
     yh = (y - mean) * torch.rsqrt(var + 1e-5)
-    y = (yh.reshape(B, S, D) * p["ln_x_scale"]).to(x.dtype) * g
-    out = y @ p["w_o"]
+    return (yh.reshape(B, S, D) * ln_x_scale).to(r.dtype) * g, s_last
+
+
+def _rows(t: torch.Tensor) -> Tuple[Optional[str], ...]:
+    return ("batch",) + (None,) * (t.ndim - 1)
+
+
+def time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
+             state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+             ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """RWKV6 attention replacement.  state = (last_token, S)."""
+    mesh = isinstance(x, DTensor)
+    last = state[0] if state is not None else None
+    if mesh:
+        # the token shift and the low-rank lerp on each rank's rows
+        def lerp(x, last, mu, lora_a, lora_b):
+            return tuple(t.contiguous() for t in _ddlerp(
+                {"mu": mu, "lora_a": lora_a, "lora_b": lora_b}, x,
+                _token_shift(x, last)))
+        streams = local_call(
+            lerp, [x, last, p["mu"], p["lora_a"], p["lora_b"]],
+            [_rows(x), None if last is None else _rows(last), (None, None),
+             (None, None), (None, None, None)], [_rows(x)] * 5)
+    else:
+        streams = _ddlerp(p, x, _token_shift(x, last))
+    xr, xk, xv, xw, xg = streams
+    args = [xr @ p["w_r"], xk @ p["w_k"], xv @ p["w_v"], xg @ p["w_g"],
+            xw @ p["w_decay"], p["decay_bias"], p["bonus_u"],
+            p["ln_x_scale"], state[1] if state is not None else None]
+    if mesh:
+        # heads over the model axis: the projections' columns, the
+        # recurrence and the group norm per head; w_o's rows summed
+        width = ("batch", None, "model")
+        heads = ("batch", "model", None, None)
+        y, s_last = local_call(
+            _time_mix_heads, args,
+            [width] * 5 + [("model",), ("model", None), ("model",),
+                           None if state is None else heads],
+            [width, heads], use_kernels=cfg.use_kernels)
+        out = hint(y @ p["w_o"], "batch", None, None)
+    else:
+        y, s_last = _time_mix_heads(*args, use_kernels=cfg.use_kernels)
+        out = y @ p["w_o"]
     if state is None:
         return out, (x[:, -1:, :], s_last)
     state[0].copy_(x[:, -1:, :])
@@ -133,14 +183,17 @@ def time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
 def channel_mix(p: Params, x: torch.Tensor,
                 state: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """RWKV squared-relu FFN with token shift.  state = last token."""
+    """RWKV squared-relu FFN with token shift.  state = last token.  On
+    a mesh ``w_k``'s and ``w_r``'s columns and ``w_v``'s rows split over
+    the model axis, ``kv`` summed over it."""
     shifted = _token_shift(x, state)
     xk = x + (shifted - x) * p["mu_k"]
     k = xk @ p["w_k"]
     k = torch.square(torch.relu(k.float())).to(x.dtype)
-    kv = k @ p["w_v"]
+    kv = hint(k @ p["w_v"], "batch", None, None)
     r = torch.sigmoid((x @ p["w_r"]).float()).to(x.dtype)
+    out = hint(r * kv, "batch", None, None)
     if state is None:
-        return r * kv, x[:, -1:, :]
+        return out, x[:, -1:, :]
     state.copy_(x[:, -1:, :])
-    return r * kv, state
+    return out, state

@@ -40,7 +40,10 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.hints import hint, local_call, write_slice
 
 from .common import (DeviceLike, ModelConfig, Params, cross_entropy_loss,
                      dense_init, resolve_device, rms_norm,
@@ -92,6 +95,26 @@ def layer_windows(cfg: ModelConfig) -> List[int]:
         is_global = cfg.global_every > 0 and (l + 1) % cfg.global_every == 0
         w.append(BIG_WINDOW if is_global else cfg.local_window)
     return w
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings ``table[tokens]``.  On a mesh each rank looks
+    up its rows of tokens in the whole table (gathered over the model
+    axis when it is vocab-sharded): DTensor's sharded gather fails in
+    its backward on some releases, and the local gather's backward is
+    the plain path's."""
+    if isinstance(table, DTensor):
+        rows = ("batch",) + (None,) * (tokens.ndim - 1)
+        return local_call(lambda w, t: w[t], [table, tokens],
+                          [(None, None), rows], [rows + (None,)])
+    return table[tokens]
+
+
+def _rows(o: torch.Tensor) -> torch.Tensor:
+    """A residual branch's (B, S, D) output, on a mesh summed over the
+    model axis and sharded by rows before it meets the residual stream
+    (DTensor would otherwise carry the partial sum into the next norm)."""
+    return hint(o, "batch", None, None)
 
 
 def _block_kind(cfg: ModelConfig, l: int) -> str:
@@ -163,22 +186,40 @@ def _empty_stack(tree, n: int):
     return tree.new_empty((n,) + tuple(tree.shape))
 
 
+#: ``init_model``'s ``shard``: (leaf path, full leaf or one layer's slice
+#: of a stacked leaf, whether it is such a slice) -> the part to keep
+KeepFn = Callable[[Tuple[str, ...], torch.Tensor, bool], torch.Tensor]
+
+
+def _keep(tree, path: Tuple[str, ...], shard: Optional[KeepFn],
+          layer_slice: bool = False):
+    """``tree`` with each leaf cut by ``shard`` (as it is without one)."""
+    if shard is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _keep(v, path + (k,), shard, layer_slice)
+                for k, v in tree.items()}
+    return shard(path, tree, layer_slice)
+
+
 def _init_stacked_layers(gen: torch.Generator, cfg: ModelConfig,
                          init_layer: Callable[[torch.Generator, ModelConfig],
                                               Params] = _init_decoder_layer,
-                         n: Optional[int] = None) -> Params:
+                         n: Optional[int] = None,
+                         shard: Optional[KeepFn] = None,
+                         path: Tuple[str, ...] = ("layers",)) -> Params:
     """``n`` layers (``cfg.n_layers`` by default) drawn by ``init_layer``,
     stacked on a leading axis, drawn layer after layer in the reference's
     order.  Each stacked tensor is allocated once, and each layer's draws
-    are copied into their slice and dropped before the next layer is
-    drawn: the peak holds the weights and one layer's draws, not the
-    weights twice."""
+    are copied into their slice (the part ``shard`` keeps, if given) and
+    dropped before the next layer is drawn: the peak holds the weights
+    (or their shards) and one layer's draws, not the weights twice."""
     n = cfg.n_layers if n is None else n
-    layer = init_layer(gen, cfg)
+    layer = _keep(init_layer(gen, cfg), path, shard, True)
     stacked = _empty_stack(layer, n)
     for l in range(n):
         if l:
-            layer = init_layer(gen, cfg)
+            layer = _keep(init_layer(gen, cfg), path, shard, True)
         _copy_leaves(_layer(stacked, l), layer)
         layer = None
     return stacked
@@ -206,33 +247,44 @@ def _init_hybrid_layer(gen: torch.Generator, cfg: ModelConfig, l: int
 
 
 def init_model(cfg: ModelConfig, seed: int = 0,
-               device: DeviceLike = None) -> Params:
+               device: DeviceLike = None,
+               shard: Optional[KeepFn] = None) -> Params:
     """Random parameters in the reference's layout, drawn on ``device``
     from a ``torch.Generator`` seeded with ``seed``.  (The draws differ
     from ``jax.random``'s; tests carry JAX parameters across with
-    ``convert.params_from_jax`` instead.)"""
+    ``convert.params_from_jax`` instead.)
+
+    ``shard``: every leaf is drawn in full, the same on every rank, and
+    only what ``shard`` keeps of it is held (a stacked leaf layer by
+    layer): ``distributed.sharding.init_sharded`` builds a mesh's
+    parameters so."""
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
     if cfg.arch_kind == "encdec":
-        return _init_whisper(gen, cfg)
+        return _init_whisper(gen, cfg, shard)
+
+    def keep(name, t):
+        return _keep(t, (name,), shard)
+
     params: Params = {
-        "embed": dense_init(gen, (cfg.padded_vocab, cfg.d_model), cfg.dtype,
-                            scale=0.02),
-        "ln_f": torch.zeros((cfg.d_model,), dtype=torch.float32,
-                            device=gen.device),
+        "embed": keep("embed", dense_init(
+            gen, (cfg.padded_vocab, cfg.d_model), cfg.dtype, scale=0.02)),
+        "ln_f": keep("ln_f", torch.zeros((cfg.d_model,), dtype=torch.float32,
+                                         device=gen.device)),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab),
-                                       cfg.dtype)
+        params["unembed"] = keep("unembed", dense_init(
+            gen, (cfg.d_model, cfg.padded_vocab), cfg.dtype))
     if cfg.arch_kind == "vlm":
-        params["patch_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model),
-                                          cfg.dtype)
+        params["patch_proj"] = keep("patch_proj", dense_init(
+            gen, (cfg.d_model, cfg.d_model), cfg.dtype))
     if cfg.arch_kind == "hybrid":
         # heterogeneous layers: a list, as in the reference
-        params["layers"] = [_init_hybrid_layer(gen, cfg, l)
-                            for l in range(cfg.n_layers)]
+        params["layers"] = [
+            _keep(_init_hybrid_layer(gen, cfg, l), ("layers", str(l)), shard)
+            for l in range(cfg.n_layers)]
     else:
-        params["layers"] = _init_stacked_layers(gen, cfg)
+        params["layers"] = _init_stacked_layers(gen, cfg, shard=shard)
     return params
 
 
@@ -249,30 +301,32 @@ def _uniform_layer(cfg: ModelConfig, x: torch.Tensor, layer_p: Params,
     """One pre-norm decoder layer: (x, aux), aux the MoE load-balance
     loss (0.0 without experts); the cache (if any) updates in place.
     ``mrope_positions`` (vlm forward) rotates q and k by M-RoPE."""
+    x = hint(x, "batch", None, None)
     h = rms_norm(x, layer_p["ln1"], cfg.norm_eps)
     if cfg.arch_kind == "rwkv":
         o, _ = time_mix(layer_p["tmix"], h, cfg,
                         state=cache["tmix"] if cache is not None else None)
-        x = x + o
+        x = x + _rows(o)
         h2 = rms_norm(x, layer_p["ln2"], cfg.norm_eps)
         o2, _ = channel_mix(layer_p["cmix"], h2,
                             state=cache["cmix"] if cache is not None
                             else None)
-        return x + o2, 0.0
+        return x + _rows(o2), 0.0
     if cache is not None and cfg.kv_quant:
         c_in = (cache["k"], cache["v"], cache["k_scale"], cache["v_scale"])
     elif cache is not None:
         c_in = (cache["k"], cache["v"])
     else:
         c_in = None
-    x = x + attention(layer_p["attn"], h, cfg, positions, window=window,
-                      cache=c_in, cache_index=cache_index,
-                      mrope_positions=mrope_positions)
+    x = x + _rows(attention(layer_p["attn"], h, cfg, positions,
+                            window=window, cache=c_in,
+                            cache_index=cache_index,
+                            mrope_positions=mrope_positions))
     h2 = rms_norm(x, layer_p["ln2"], cfg.norm_eps)
     if cfg.n_experts:
         o2, aux = moe_ffn(layer_p["moe"], h2, cfg)
-        return x + o2, aux
-    return x + swiglu(layer_p["mlp"], h2, cfg), 0.0
+        return x + _rows(o2), aux
+    return x + _rows(swiglu(layer_p["mlp"], h2, cfg)), 0.0
 
 
 def _hybrid_layer(cfg: ModelConfig, x: torch.Tensor, layer_p: Params,
@@ -292,9 +346,9 @@ def _hybrid_layer(cfg: ModelConfig, x: torch.Tensor, layer_p: Params,
     else:
         state = (cache["conv"], cache["h"]) if cache is not None else None
         o, _ = recurrent_block(layer_p["rec"], h, cfg, state=state)
-    x = x + o
+    x = x + _rows(o)
     h2 = rms_norm(x, layer_p["ln2"], cfg.norm_eps)
-    return x + swiglu(layer_p["mlp"], h2)
+    return x + _rows(swiglu(layer_p["mlp"], h2))
 
 
 def _layer_fns(params: Params, cfg: ModelConfig
@@ -327,7 +381,7 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
         logits = x @ params["embed"].T
     else:
         logits = x @ params["unembed"]
-    return _mask_pad_vocab(logits, cfg)
+    return hint(_mask_pad_vocab(logits, cfg), "batch", None, "model")
 
 
 # ---------------------------------------------------------------------------
@@ -349,7 +403,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     given; the port raises."""
     _require_decoder(cfg)
     B, S_text = tokens.shape
-    x = params["embed"][tokens]
+    x = _embed(params["embed"], tokens)
     mrope = None
     if cfg.arch_kind == "vlm":
         want = (B, cfg.n_patches, cfg.d_model)
@@ -450,7 +504,10 @@ def zero_cache_slot(cfg: ModelConfig, cache: Params, slot: int) -> Params:
     carry its recurrent state).  The hybrid family keeps batch first in
     each layer's arrays; every other family stacks layers first."""
     for a in _leaves(cache):
-        if cfg.arch_kind == "hybrid":
+        dim = 0 if cfg.arch_kind == "hybrid" else 1
+        if isinstance(a, DTensor):
+            write_slice(a, dim, slot, torch.zeros_like(a.narrow(dim, 0, 1)))
+        elif dim == 0:
             a[slot] = 0
         else:
             a[:, slot] = 0
@@ -468,7 +525,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     reference's decode (it takes no patches and passes no M-RoPE ids)."""
     _require_decoder(cfg)
     B = tokens.shape[0]
-    x = params["embed"][tokens]
+    x = _embed(params["embed"], tokens)
     if isinstance(index, torch.Tensor) and index.ndim == 1:
         index = index.to(x.device)
         positions = index[:, None]
@@ -479,9 +536,27 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     layer_caches: List[Any] = (
         cache["layers"] if cfg.arch_kind == "hybrid"
         else [_layer(cache, l) for l in range(cfg.n_layers)])
-    for fn, c in zip(_layer_fns(params, cfg), layer_caches):
+    for l, (fn, c) in enumerate(zip(_layer_fns(params, cfg),
+                                    layer_caches)):
         x, _ = fn(x, positions, c, index)
+        if cfg.arch_kind != "hybrid":
+            _write_layer(cache, l, c)
     return _logits(params, cfg, x), cache
+
+
+def _write_layer(cache: Params, l: int, layer: Params) -> None:
+    """Put layer ``l``'s cache back into the stacked DTensor leaves whose
+    layer dim is split over the mesh: their slice was a gathered copy.
+    (Elsewhere the slice is a view, already written.)"""
+    for stacked, one in zip(_leaves(cache), _leaves(layer)):
+        if _split_on(stacked, 0):
+            write_slice(stacked, 0, l, one[None])
+
+
+def _split_on(t: torch.Tensor, dim: int) -> bool:
+    """Whether ``t`` is a DTensor sharded over some mesh dim on ``dim``."""
+    return isinstance(t, DTensor) and any(
+        isinstance(p, Shard) and p.dim == dim for p in t.placements)
 
 
 # ---------------------------------------------------------------------------
@@ -509,20 +584,24 @@ def _init_whisper_dec_layer(gen: torch.Generator, cfg: ModelConfig
             "mlp": init_gelu_mlp(gen, cfg)}
 
 
-def _init_whisper(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def _init_whisper(gen: torch.Generator, cfg: ModelConfig,
+                  shard: Optional[KeepFn] = None) -> Params:
     """The reference's tree: ``embed``, stacked ``enc_layers`` and
     ``dec_layers`` (each stacked tensor allocated once), ``ln_enc`` and
     ``ln_f``; the LM head is tied to ``embed``."""
     zeros = dict(dtype=torch.float32, device=gen.device)
     return {
-        "embed": dense_init(gen, (cfg.padded_vocab, cfg.d_model), cfg.dtype,
-                            scale=0.02),
+        "embed": _keep(dense_init(gen, (cfg.padded_vocab, cfg.d_model),
+                                  cfg.dtype, scale=0.02), ("embed",), shard),
         "enc_layers": _init_stacked_layers(gen, cfg, _init_whisper_enc_layer,
-                                           cfg.n_enc_layers),
+                                           cfg.n_enc_layers, shard,
+                                           ("enc_layers",)),
         "dec_layers": _init_stacked_layers(gen, cfg, _init_whisper_dec_layer,
-                                           cfg.n_layers),
-        "ln_enc": torch.zeros((cfg.d_model,), **zeros),
-        "ln_f": torch.zeros((cfg.d_model,), **zeros),
+                                           cfg.n_layers, shard,
+                                           ("dec_layers",)),
+        "ln_enc": _keep(torch.zeros((cfg.d_model,), **zeros), ("ln_enc",),
+                        shard),
+        "ln_f": _keep(torch.zeros((cfg.d_model,), **zeros), ("ln_f",), shard),
     }
 
 
@@ -531,10 +610,10 @@ def _enc_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
     """One encoder layer: self-attention over every frame (not causal, no
     RoPE), then the GELU MLP."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    x = x + attention(lp["attn"], h, cfg, positions, causal=False,
-                      rope=False)
+    x = x + _rows(attention(lp["attn"], h, cfg, positions, causal=False,
+                            rope=False))
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + gelu_mlp(lp["mlp"], h2)
+    return x + _rows(gelu_mlp(lp["mlp"], h2))
 
 
 def _dec_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
@@ -545,12 +624,12 @@ def _dec_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
     KV cache, in place, when one is given), cross-attention onto ``enc``,
     then the GELU MLP."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    x = x + attention(lp["attn"], h, cfg, positions, rope=False,
-                      cache=cache, cache_index=cache_index)
+    x = x + _rows(attention(lp["attn"], h, cfg, positions, rope=False,
+                            cache=cache, cache_index=cache_index))
     hx = rms_norm(x, lp["ln_x"], cfg.norm_eps)
-    x = x + cross_attention(lp["xattn"], hx, enc, cfg)
+    x = x + _rows(cross_attention(lp["xattn"], hx, enc, cfg))
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + gelu_mlp(lp["mlp"], h2)
+    return x + _rows(gelu_mlp(lp["mlp"], h2))
 
 
 def encode_frames(params: Params, cfg: ModelConfig, frames: torch.Tensor,
@@ -577,7 +656,7 @@ def whisper_forward(params: Params, cfg: ModelConfig, frames: torch.Tensor,
     ``forward``, for the encoder and the decoder."""
     enc = encode_frames(params, cfg, frames, remat)
     S = tokens.shape[1]
-    x = params["embed"][tokens] + sinusoidal_positions(
+    x = _embed(params["embed"], tokens) + sinusoidal_positions(
         S, cfg.d_model, device=tokens.device).to(cfg.dtype)
     positions = torch.arange(S, device=x.device)
     call = _apply(remat)
@@ -610,7 +689,7 @@ def whisper_decode_step(params: Params, cfg: ModelConfig,
     forwards at every position."""
     index = int(index)
     B = tokens.shape[0]
-    x = params["embed"][tokens] + sinusoidal_positions(
+    x = _embed(params["embed"], tokens) + sinusoidal_positions(
         1, cfg.d_model, start=index, device=tokens.device).to(cfg.dtype)
     positions = torch.full((B, 1), index, dtype=torch.long,
                            device=x.device)

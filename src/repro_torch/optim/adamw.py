@@ -14,6 +14,11 @@ in float32 and cast back to the leaf's dtype.
 ``CHUNK`` elements: the float32 temporaries of an update are a few
 chunks, not a few copies of the largest leaf (qwen2.5-3b's stacked
 ``w_gate`` is 3.25 GB in float32).
+
+On a mesh the leaves are DTensors: the moments take their parameter's
+placements (so sharded parameters give ZeRO-sharded states, as in the
+reference), the update runs on each rank's local shard, and
+``global_norm`` counts every element once over the mesh.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import math
 from typing import Any, Iterator, NamedTuple, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Partial
 
 from repro_torch.tree import leaves, tree_map
 
@@ -50,8 +56,7 @@ class AdamWState(NamedTuple):
 
 def init_state(params: Any) -> AdamWState:
     first = leaves(params)[0]
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     return AdamWState(step=torch.zeros((), dtype=torch.int32,
                                        device=first.device),
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
@@ -79,19 +84,42 @@ def _chunks(*tensors: torch.Tensor) -> Iterator[Tuple[torch.Tensor, ...]]:
     return zip(*(t.view(-1).split(CHUNK) for t in tensors))
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32 (0-d)."""
+    """sqrt of the sum of squares of every leaf, in float32 (0-d).  A
+    DTensor leaf adds its local shard's sum divided by the ranks that hold
+    a copy of it (a power of two on the meshes here, so exactly), and one
+    all-reduce over the mesh sums the ranks: each element counts once."""
     total = 0.0
+    mesh = None
     for x in leaves(tree):
-        for (c,) in _chunks(x):
-            total = total + torch.sum(torch.square(c.float()))
-    return torch.sqrt(torch.as_tensor(total))
+        copies = 1
+        if isinstance(x, DTensor):
+            mesh = x.device_mesh
+            for i, p in enumerate(x.placements):
+                if p.is_partial():
+                    raise ValueError("global_norm takes no Partial leaf")
+                if p.is_replicate():
+                    copies *= mesh.size(i)
+        for (c,) in _chunks(_local(x)):
+            s = torch.sum(torch.square(c.float()))
+            total = total + (s / copies if copies > 1 else s)
+    total = torch.as_tensor(total)
+    if mesh is not None:
+        total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                                   run_check=False).full_tensor()
+    return torch.sqrt(total)
 
 
 def apply_updates(cfg: AdamWConfig, params: Any, grads: Any,
                   state: AdamWState) -> Tuple[Any, AdamWState]:
     """One AdamW step.  ``params``, ``state.mu`` and ``state.nu`` are
-    updated in place and returned, with the new step count."""
+    updated in place and returned, with the new step count.  DTensor
+    leaves update their local shards; a gradient must have its
+    parameter's placements."""
     with torch.profiler.record_function("adamw.apply_updates"), \
             torch.no_grad():
         step = state.step + 1
@@ -104,7 +132,11 @@ def apply_updates(cfg: AdamWConfig, params: Any, grads: Any,
         for p, g, m, v in zip(leaves(params), leaves(grads),
                               leaves(state.mu), leaves(state.nu)):
             decay = p.ndim >= 2       # decoupled weight decay on matrices
-            for pc, gc, mc, vc in _chunks(p, g, m, v):
+            if isinstance(p, DTensor) and (
+                    list(g.placements) != list(p.placements)):
+                raise ValueError("a gradient's placements differ from its "
+                                 "parameter's")
+            for pc, gc, mc, vc in _chunks(*map(_local, (p, g, m, v))):
                 gc = gc.float() * scale
                 mc.mul_(cfg.b1).add_(gc, alpha=1 - cfg.b1)
                 vc.mul_(cfg.b2).addcmul_(gc, gc, value=1 - cfg.b2)

@@ -7,13 +7,20 @@ the port runs them eagerly.  The train step runs the plain path only:
 the reference's ``jax.grad`` cannot pass through its Pallas kernels, and
 the port's CUDA kernels have no backward (their wrappers raise under
 grad mode), so ``make_train_step`` refuses ``use_kernels``.
+
+On a mesh (inside ``distributed.hints.use_mesh``, parameters, optimizer
+state and batch as DTensors) the same functions run SPMD: each gradient
+is brought to its parameter's placements, and the metrics come back as
+plain tensors, the same on every rank.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.hints import hint, to_plain
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import (decode_step, forward, loss_fn,
                                             whisper_decode_step,
@@ -31,6 +38,28 @@ _global_norm = global_norm
 
 def arch_loss_fn(cfg: ModelConfig) -> Callable:
     return whisper_loss_fn if cfg.arch_kind == "encdec" else loss_fn
+
+
+def microbatch(batch: Batch, i: int, M: int) -> Batch:
+    """Microbatch ``i`` of ``M`` of the reference's interleaved split:
+    rows i, i + M, i + 2M, ...  A DTensor batch whose rows shard over the
+    data axes splits on each rank's own rows when each rank holds a
+    multiple of M of them (rank r's block of the global rows then holds
+    exactly its share of every microbatch, in order), so the data
+    sharding stays on the microbatch's rows and no rank gathers the
+    batch; otherwise the slice goes through DTensor."""
+    out = {}
+    for k, v in batch.items():
+        if (isinstance(v, DTensor)
+                and v.to_local().shape[0] % M == 0
+                and all(p.is_replicate() or p.is_shard(0)
+                        for p in v.placements)):
+            out[k] = DTensor.from_local(
+                v.to_local()[i::M], v.device_mesh, v.placements,
+                run_check=False)
+        else:
+            out[k] = v[i::M]
+    return out
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
@@ -61,7 +90,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
         with torch.enable_grad():
             loss = base_loss(live, cfg, batch)
-        return loss.detach(), list(torch.autograd.grad(loss, leaves(live)))
+        grads = list(torch.autograd.grad(loss, leaves(live)))
+        for j, p in enumerate(leaves(params)):
+            if isinstance(p, DTensor):
+                grads[j] = grads[j].redistribute(p.device_mesh, p.placements)
+        return loss.detach(), grads
 
     def train_step(params, opt_state: AdamWState, batch: Batch):
         if M == 1:
@@ -71,13 +104,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             if B % M:
                 raise ValueError(f"batch {B} does not split into {M} "
                                  "microbatches")
-            grads = [torch.zeros(p.shape, dtype=grad_dtype, device=p.device)
+            grads = [torch.zeros_like(p, dtype=grad_dtype)
                      for p in leaves(params)]
             loss = torch.zeros((), dtype=torch.float32,
                                device=grads[0].device)
             for i in range(M):
-                l, g = loss_and_grads(params,
-                                      {k: v[i::M] for k, v in batch.items()})
+                l, g = loss_and_grads(params, microbatch(batch, i, M))
                 for j, acc in enumerate(grads):
                     acc.add_(g[j])
                     g[j] = None       # free each microbatch gradient
@@ -88,7 +120,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         grads = unflatten(params, grads)
         grad_norm = _global_norm(grads)
         params, opt_state = apply_updates(opt_cfg, params, grads, opt_state)
-        return params, opt_state, {"loss": loss, "step": opt_state.step,
+        return params, opt_state, {"loss": to_plain(loss),
+                                   "step": opt_state.step,
                                    "grad_norm": grad_norm}
 
     return train_step
@@ -119,7 +152,10 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
                                                 index)
         else:
             logits, cache = decode_step(params, cfg, tokens, cache, index)
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        # on a mesh the last position's logits gather their vocab shards
+        # first: one row a sequence, and the argmax then needs no offsets
+        last = hint(logits[:, -1, :], "batch", None)
+        nxt = torch.argmax(last, dim=-1).to(torch.int32)
         return nxt[:, None], cache
 
     return serve_step

@@ -1,6 +1,6 @@
-"""Fault-tolerant training loop on one device.
+"""Fault-tolerant training loop, on one device or on a mesh.
 
-Port of ``repro.runtime.train_loop`` without the mesh:
+Port of ``repro.runtime.train_loop``:
   * step-atomic async checkpoints every ``ckpt_every`` steps;
   * resume from the latest checkpoint in ``ckpt_dir`` at start;
   * on a step failure (device error, preemption, an injected fault) the
@@ -8,9 +8,13 @@ Port of ``repro.runtime.train_loop`` without the mesh:
     state and step, restores the latest checkpoint (or restarts at step
     0) and continues; deterministic data means the restart replays the
     exact global batches.  It gives up after ``max_failures``.
-The reference also re-forms its mesh from the surviving devices on a
-failure (elastic re-mesh); that waits for the port's distributed slice
-(``ROADMAP.md``, Queue 1 item 8).
+With ``mesh_fn`` the loop trains on the mesh it returns: parameters
+(``init_sharded``) and AdamW moments as DTensors of the reference's
+shardings, each rank's rows of every batch (``shard_batch``), the step
+inside ``use_mesh``.  On a failure it calls ``mesh_fn`` again (elastic
+re-mesh: the survivors' mesh), rebuilds on it and restores the latest
+checkpoint onto it, which reshards every leaf.  Without ``mesh_fn`` it
+runs on one device, as before the distributed layer.
 
 The data pipeline yields tokens and labels only, as the reference's
 loop feeds: the vlm and encoder-decoder archs, whose losses also take
@@ -25,7 +29,11 @@ from typing import Any, Callable, Dict, Optional
 
 from repro_torch.checkpoint.store import AsyncCheckpointer, latest_step, \
     restore
-from repro_torch.data.pipeline import DataConfig, TokenDataset, to_device
+from repro_torch.data.pipeline import (DataConfig, TokenDataset,
+                                       shard_batch, to_device)
+from repro_torch.distributed.hints import use_mesh
+from repro_torch.distributed.sharding import (distribute, init_sharded,
+                                              params_shardings)
 from repro_torch.models.common import DeviceLike, ModelConfig, \
     resolve_device
 from repro_torch.models.transformer import init_model
@@ -59,10 +67,16 @@ class FaultInjector:
 
 
 def _build(cfg: ModelConfig, opt_cfg: AdamWConfig, loop: TrainLoopConfig,
-           device, params: Any = None):
+           device, params: Any = None, mesh=None):
     """Fresh parameters (``init_model`` from ``loop.seed``, or a copy of
-    ``params`` on ``device``), optimizer state and train step."""
-    if params is None:
+    ``params`` on ``device``; on ``mesh``, their shards), optimizer state
+    and train step."""
+    if mesh is not None and params is None:
+        params = init_sharded(cfg, mesh, seed=loop.seed, device=device)
+    elif mesh is not None:
+        params = distribute(params, params_shardings(cfg, params, mesh),
+                            device)
+    elif params is None:
         params = init_model(cfg, seed=loop.seed, device=device)
     else:
         params = tree_map(lambda t: t.detach().to(device, copy=True), params)
@@ -73,10 +87,15 @@ def _build(cfg: ModelConfig, opt_cfg: AdamWConfig, loop: TrainLoopConfig,
 def train(cfg: ModelConfig, opt_cfg: AdamWConfig, loop: TrainLoopConfig,
           data_cfg: DataConfig, fault: Optional[FaultInjector] = None,
           on_metrics: Optional[Callable[[int, Dict], None]] = None,
-          device: DeviceLike = None, params: Any = None) -> Dict[str, Any]:
+          device: DeviceLike = None, params: Any = None,
+          mesh_fn: Optional[Callable[[], Any]] = None,
+          mesh: Any = None) -> Dict[str, Any]:
     """Run the loop on ``device`` (``cuda`` unless the caller names
-    another).  ``params``: start from (a copy of) these instead of
-    ``init_model``'s draws, for example the reference's parameters.
+    another), or on a mesh: ``mesh``, or else the one ``mesh_fn()``
+    returns (its device type; a ``cuda`` mesh raises without a card),
+    ``mesh_fn`` forming each later one.  ``params``: start from (a copy
+    of, or the shards of) these instead of ``init_model``'s draws, for
+    example the reference's parameters.
 
     Returns the final params and optimizer state, the metrics history
     (every ``log_every`` steps and the last: the step, its metrics and
@@ -88,7 +107,9 @@ def train(cfg: ModelConfig, opt_cfg: AdamWConfig, loop: TrainLoopConfig,
     if cfg.arch_kind in ("vlm", "encdec"):
         raise ValueError(f"{cfg.name}: the token pipeline feeds no "
                          "patch embeddings or frames, which its loss takes")
-    dev = resolve_device(device)
+    if mesh is None and mesh_fn is not None:
+        mesh = mesh_fn()
+    dev = resolve_device(mesh.device_type if mesh is not None else device)
     ds = TokenDataset(data_cfg)
     ckpt = AsyncCheckpointer(loop.ckpt_dir) if loop.ckpt_dir else None
     history = []
@@ -104,16 +125,18 @@ def train(cfg: ModelConfig, opt_cfg: AdamWConfig, loop: TrainLoopConfig,
         print(f"[train] resumed from step {last}")
         return tree["params"], tree["opt"], last
 
-    state, opt_state, step_fn = _build(cfg, opt_cfg, loop, dev, params)
+    state, opt_state, step_fn = _build(cfg, opt_cfg, loop, dev, params, mesh)
     state, opt_state, step = restore_latest(state, opt_state)
     t_start = t_last = time.perf_counter()
     while step < loop.steps:
         failed = False
         try:
-            batch = to_device(ds.global_batch_at(step), dev)
+            batch = (shard_batch(ds, step, mesh, dev) if mesh is not None
+                     else to_device(ds.global_batch_at(step), dev))
             if fault is not None:
                 fault.check(step)
-            state, opt_state, metrics = step_fn(state, opt_state, batch)
+            with use_mesh(mesh):
+                state, opt_state, metrics = step_fn(state, opt_state, batch)
             step += 1
             steps_run += 1
             if step % loop.log_every == 0 or step == loop.steps:
@@ -139,8 +162,10 @@ def train(cfg: ModelConfig, opt_cfg: AdamWConfig, loop: TrainLoopConfig,
             if ckpt:
                 ckpt.wait()
             state = opt_state = step_fn = None     # drop the failed state
+            if mesh_fn is not None:
+                mesh = mesh_fn()     # elastic: the survivors' mesh
             state, opt_state, step_fn = _build(cfg, opt_cfg, loop, dev,
-                                               params)
+                                               params, mesh)
             state, opt_state, step = restore_latest(state, opt_state)
             t_last = time.perf_counter()
 

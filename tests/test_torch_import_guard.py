@@ -19,7 +19,9 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n == "repro" or n.startswith("repro."))
-print(json.dumps({"imported": names, "bad": bad}))
+import torch.distributed as dist
+print(json.dumps({"imported": names, "bad": bad,
+                  "group": dist.is_initialized()}))
 """
 
 
@@ -30,6 +32,7 @@ def test_port_imports_no_jax_and_no_reference():
                          check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
+    assert res["group"] is False      # no import starts a process group
     for mod in ("repro_torch.kernels.fused_mlp", "repro_torch.models.layers",
                 "repro_torch.runtime.serve_loop", "repro_torch.launch.serve",
                 "repro_torch.core.planner", "repro_torch.core.simulator",
@@ -45,7 +48,11 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.optim.adamw", "repro_torch.runtime.steps",
                 "repro_torch.runtime.train_loop",
                 "repro_torch.checkpoint.store",
-                "repro_torch.data.pipeline", "repro_torch.launch.train"):
+                "repro_torch.data.pipeline", "repro_torch.launch.train",
+                "repro_torch.distributed.hints",
+                "repro_torch.distributed.sharding",
+                "repro_torch.distributed.pipeline",
+                "repro_torch.launch.mesh", "repro_torch.launch.dryrun"):
         assert mod in res["imported"]
 
 

@@ -355,4 +355,16 @@ def test_launcher_help_names_the_depth_cut(capsys):
         train_cli.main(["--help"])
     text = capsys.readouterr().out
     assert "--layers" in text and "--device" in text
-    assert "--multipod" not in text
+    assert "--multipod" in text
+
+
+def test_launcher_multipod_needs_512_ranks(monkeypatch):
+    """``--multipod`` asks for the 2 x 16 x 16 production mesh: on a
+    world of one rank it raises, naming the ranks it needs, before it
+    joins a process group."""
+    import torch.distributed as dist
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="512 ranks"):
+        train_cli.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                        "--steps", "1", "--multipod"])
+    assert not dist.is_initialized()
