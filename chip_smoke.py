@@ -19,10 +19,10 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    for ``fused_mlp``, the launch- or latency-bound kernels and flash
    attention, the kernel's device time by the profiler; ``fused_mlp``
    at qwen2.5-3b and gemma3-4b widths (decode, prefill, ragged T, ragged
-   D and F), at D = 5120 (phi3-medium-14b's and qwen1.5-32b's decode,
-   qwen1.5-32b's (1, 512) prefill in the rows regime) and at qwen2-vl-2b's
-   width (decode, and its (2, 1024) forward's prefill), with each row's
-   regime, and flash attention at the model paths' shapes (whisper's
+   D and F), at D = 5120 (phi3-medium-14b's and qwen1.5-32b's decode in
+   the rows regime, their (1, 512) prefill in the ``wgmma`` regime) and
+   at qwen2-vl-2b's width (decode, and its (2, 1024) forward's prefill),
+   each row with its regime, device ms, bound and cuBLAS x 3 ms, and flash attention at the model paths' shapes (whisper's
    non-causal encoder over 1500 frames, its cross-attention in forward
    and in decode, one query row, among them), in bf16
    (tensor cores, also held to a limit in bf16 ulps) and float32, each
@@ -214,9 +214,9 @@ CLEAN_CARD_BYTES = 1e9
 #: (label, T, D, F): qwen2.5-3b width (the serve path's 4 slots, a
 #: 256-token prompt, a ragged T), gemma3-4b width (4 slots, and the
 #: (1, 8192) forward's prefill), D = 5120: phi3-medium-14b's and
-#: qwen1.5-32b's 4 slots, and qwen1.5-32b's (1, 512) forward, which the
-#: rows regime takes (no cluster tile holds D / 8 = 640 columns), and
-#: qwen2-vl-2b's 4 slots and its (2, 256 + 768) forward
+#: qwen1.5-32b's 4 slots (the rows regime) and their (1, 512) forwards
+#: (the wgmma regime, 640-column D-slices), and qwen2-vl-2b's 4 slots and
+#: its (2, 256 + 768) forward
 FUSED_MLP_SHAPES = [("decode", 4, 2048, 11008), ("prefill", 256, 2048, 11008),
                     ("ragged", 5, 2048, 11008),
                     ("decode-gemma", 4, 2560, 10240),
@@ -224,11 +224,13 @@ FUSED_MLP_SHAPES = [("decode", 4, 2048, 11008), ("prefill", 256, 2048, 11008),
                     ("decode-phi3", 4, 5120, 17920),
                     ("decode-qwen32", 4, 5120, 27392),
                     ("prefill-qwen32", 512, 5120, 27392),
+                    ("prefill-phi3", 512, 5120, 17920),
                     ("decode-vlm", 4, 1536, 8960),
                     ("prefill-vlm", 2048, 1536, 8960)]
 #: prefill rows that float32 checks without timing
 FUSED_MLP_UNTIMED = {("prefill-gemma", "float32"),
                      ("prefill-qwen32", "float32"),
+                     ("prefill-phi3", "float32"),
                      ("prefill-vlm", "float32")}
 
 #: the simulator scans one row of T <= 512 bursts (DEFAULT_MAX_BURSTS);
@@ -452,6 +454,11 @@ def check_fused_mlp(label: str, T: int, D: int, F: int, dtype_name: str,
                    library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
     print("fused_mlp " + json.dumps(row))
+    if timed:
+        print(f"fused_mlp {label} ({T}, {D}, {F}) {dtype_name}: regime "
+              f"{row['regime']}, device {row['device_ms']} ms, bound "
+              f"{row['bound_ms']:.4g} ms ({row['bound_by']}), cuBLAS x 3 "
+              f"{row['library_ms']:.4g} ms")
     check(ok, f"fused_mlp {label} {dtype_name}: max err "
               f"{row['max_abs_err']:.3g} above tol {tol}")
     return row
@@ -459,18 +466,21 @@ def check_fused_mlp(label: str, T: int, D: int, F: int, dtype_name: str,
 
 def fused_mlp_occupancy():
     """How many of each ``fused_mlp`` kernel fit the card at once: the
-    prefill regime's clusters per D-slice tile, the rows regime's blocks
-    per SM (by the CUDA occupancy calculator), and the SM count."""
+    ``wgmma`` regime's 8-CTA clusters, the ``cluster`` regime's per D-slice
+    tile, the rows regime's blocks per SM at D = 2560 and 5120 (by the
+    CUDA occupancy calculator), and the SM count."""
     import torch
     from repro_torch.kernels import fused_mlp as fm
     lib = fm._library()
     row = {"shape": "occupancy",
            "sms": torch.cuda.get_device_properties(0).multi_processor_count,
-           "clusters": {tile: lib.fused_mlp_max_active_clusters(tile)
-                        for tile in fm.CLUSTER_DC_TILES},
+           "clusters": {"wgmma": lib.fused_mlp_max_active_clusters(0), **{
+               f"cluster {tile}": lib.fused_mlp_max_active_clusters(tile)
+               for tile in fm.CLUSTER_DC_TILES}},
            "rows_blocks_per_sm": {
-               name: lib.fused_mlp_rows_blocks_per_sm(code, 2560)
-               for name, code in (("float32", 0), ("bfloat16", 1))}}
+               f"{name} D={d}": lib.fused_mlp_rows_blocks_per_sm(code, d)
+               for name, code in (("float32", 0), ("bfloat16", 1))
+               for d in (2560, 5120)}}
     print("fused_mlp " + json.dumps(row))
     check(min(row["clusters"].values()) > 0
           and min(row["rows_blocks_per_sm"].values()) > 0,
@@ -486,6 +496,10 @@ def phase_kernels():
     # ragged D and F too (the shapes above are ragged only in T)
     rows += [check_fused_mlp("mask-check", 5, 200, 300, dt, timed=False)
              for dt in ("bfloat16", "float32")]
+    # the wgmma regime's ragged edges: T, D and F no multiples of the tiles,
+    # F no multiple of 8 (padded for TMA)
+    rows.append(check_fused_mlp("mask-check-wgmma", 70, 2600, 300,
+                                "bfloat16", timed=False))
     rows.append(fused_mlp_occupancy())
     floor_ms = launch_floor_ms()
     print(f"launch floor: {floor_ms * 1e3:.2f} us per one-element torch op")
@@ -1984,8 +1998,9 @@ def _attention_plain_version():
 def forward_slice(arch: str, params, cfg, B: int = 1, S: int = 512):
     """``forward`` at full width on a (B, S) prompt in bf16, timed with
     the kernels (one flash launch per layer; one ``fused_mlp`` launch per
-    layer for the dense archs, whose D = 5120 takes its rows regime) and
-    on the plain path (``_sdpa``), both bit-equal to a second run.
+    layer for the dense archs, whose D = 5120 takes the wgmma regime) and
+    on the plain path (``_sdpa``), both bit-equal to a second run; the
+    kernel path's time over the plain path's is printed.
 
     A MoE layer picks its experts from the attention's output, and where
     a token's k-th and (k+1)-th router probabilities nearly tie, the last
@@ -2119,8 +2134,9 @@ def forward_slice(arch: str, params, cfg, B: int = 1, S: int = 512):
               f"{arch} forward: {name} launched {launches[name]} times, "
               f"expected {per_call}")
     row = {"arch": arch, "B": B, "S": S, "kernel_s": secs[True],
-           "plain_s": secs[False], "launches": launches,
-           "profile": breakdown, "repeatable": True,
+           "plain_s": secs[False],
+           "kernel_over_plain": secs[True] / secs[False],
+           "launches": launches, "profile": breakdown, "repeatable": True,
            "aux_kernel": float(aux[True]), "aux_plain": float(aux[False]),
            "routing_flips": n_flips, "routing_drop_diffs": n_drops,
            "routing_flips_by_layer": layer_flips,
@@ -2146,6 +2162,9 @@ def forward_slice(arch: str, params, cfg, B: int = 1, S: int = 512):
                                                 "routing_flips_by_layer",
                                                 "apart_float32_flips_by_"
                                                 "layer")}))
+    print(f"{arch} forward ({B}, {S}), bf16: kernel path {secs[True]:.4g} "
+          f"s, plain path {secs[False]:.4g} s, kernel / plain "
+          f"{secs[True] / secs[False]:.3g}")
     print(f"{arch} forward ({B}, {S}), bf16, kernel vs plain: {n_flips} "
           f"(layer, token) routings pick other experts (after layers 1, 6, "
           f"12, 18, last: {_picks(layer_flips) if moe else []}) and "
@@ -3651,23 +3670,34 @@ def main() -> dict:
 
 def _run_phases(smi, dryrun, t_start):
     """Every phase after ``phase_device``; prints the kernel table and
-    writes the record."""
-    usage = phase_build()
-    rows, mp_rows, mp_exact, floor_ms = phase_kernels()
-    wkv_rows, rg_rows = phase_recurrence_kernels(floor_ms)
-    flash_rows = phase_flash(usage)
-    serves, forwards, inits = phase_models()
+    writes the record, with each phase's seconds on the host clock."""
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+        return out
+
+    usage = timed("build", phase_build)
+    rows, mp_rows, mp_exact, floor_ms = timed("kernels", phase_kernels)
+    wkv_rows, rg_rows = timed("recurrence_kernels",
+                              phase_recurrence_kernels, floor_ms)
+    flash_rows = timed("flash", phase_flash, usage)
+    serves, forwards, inits = timed("models", phase_models)
     serve = serves["qwen2.5-3b"]
-    plan, plans, calls = phase_planner()
-    pr_rows, pr_calls = phase_price_rows(calls, floor_ms)
-    sim = phase_simulate(plans)
-    small = phase_small_reference()
-    plan_lm = phase_plan_lm()
-    planned = phase_serve_planned()
-    tenants = phase_tenants()
-    train = phase_train()
-    mesh = phase_mesh(train["full"]["steps"], usage)
-    dry = dryrun_finish(dryrun)
+    plan, plans, calls = timed("planner", phase_planner)
+    pr_rows, pr_calls = timed("price_rows", phase_price_rows, calls,
+                              floor_ms)
+    sim = timed("simulate", phase_simulate, plans)
+    small = timed("small_reference", phase_small_reference)
+    plan_lm = timed("plan_lm", phase_plan_lm)
+    planned = timed("serve_planned", phase_serve_planned)
+    tenants = timed("tenants", phase_tenants)
+    train = timed("train", phase_train)
+    mesh = timed("mesh", phase_mesh, train["full"]["steps"], usage)
+    dry = timed("dryrun_wait", dryrun_finish, dryrun)
 
     main_row = next(r for r in rows
                     if r["shape"] == "decode" and r["dtype"] == "bfloat16")
@@ -3875,6 +3905,7 @@ def _run_phases(smi, dryrun, t_start):
               "serve": serve, "serves": serves, "forwards": forwards,
               "inits": inits,
               "plan": plan, "simulate": sim, "small_reference": small,
+              "phase_seconds": phase_s,
               "plan_lm": plan_lm, "serve_planned": planned,
               "tenants": tenants, "train": train, "mesh": mesh,
               "dryrun": dry, "seconds": time.perf_counter() - t_start}

@@ -12,54 +12,79 @@
 //
 // The TPU kernel keeps a (bt, D) fp32 output block in VMEM across an
 // in-order F sweep.  On this card a tile with enough rows for the tensor
-// cores does not fit one SM (64 x 2560 x 4 bytes = 655 KB), blocks run in
+// cores does not fit one SM (64 x 5120 x 4 bytes = 1.3 MB), blocks run in
 // no order, and nothing carries over between them.  Three regimes, chosen
-// by the wrapper (kernels/fused_mlp.py:choose_regime) from T, D and dtype:
+// by the wrapper (kernels/fused_mlp.py:choose_regime) from T, D and dtype;
+// both cluster regimes split a 64-row tile over D across a cluster of
+// kC = 8 CTAs on neighbouring SMs and pass partials and h through the
+// cluster's distributed shared memory, the on-chip network between the
+// producer and consumer SMs (partials and h never leave the cluster):
 //
-// 1. bf16 prefill, fused_mlp_kernel_cluster: tensor cores across a thread-
-//    block cluster.  A cluster of kC = 8 CTAs on neighbouring SMs takes one
-//    kBT = 64-row tile, split over D: CTA c owns columns [c dc, (c+1) dc)
-//    of x and of out.  Its x slice stays in shared memory for the whole F
-//    sweep and its out slice is an fp32 accumulator in registers.  For each
-//    kBF = 64 chunk of F: (i) each CTA forms partial g and u over its
-//    D-slice with mma.sync m16n8k16 (bf16 in, fp32 out), fed by ldmatrix,
-//    the next chunk's weight stripes arriving by cp.async meanwhile; (ii)
-//    it pushes each 8-column group of its partials into the owning CTA's
-//    shared memory (st.async); the owner sums the 8 partials in rank
+// 1. bf16 prefill past one row tile, or at D > 2560,
+//    fused_mlp_kernel_wgmma: warpgroup MMA fed by TMA.  CTA c owns the DC
+//    columns [c DC, (c + 1) DC) of x and of out, DC = D / 8 rounded up to
+//    a multiple of 64, up to kMaxDC = 640 (D <= 5120).  Its x slice is
+//    loaded once by TMA and stays in shared memory; its out slice is an
+//    fp32 accumulator in the registers of two consumer warpgroups (64 x
+//    320 each at DC = 640, in 232 registers a thread by setmaxnreg; the
+//    producer warpgroup keeps 40).  For each kBF = 64 chunk of F: (i)
+//    consumer 0 forms the partial g and consumer 1 the partial u over the
+//    CTA's D-slice, wgmma m64n64k16 from shared memory (x K-major, the
+//    weight tiles MN-major, both in the 128-byte swizzled layout that TMA
+//    writes); (ii) each 8-column group of the partials goes to the owning
+//    CTA's shared memory (st.async); the owner sums the 8 partials in rank
 //    order, forms h in fp32, rounds it to bf16 and pushes its 8 columns of
 //    h into every CTA; (iii) each CTA adds h Wd[chunk, slice c] to its out
-//    slice.  The cluster's distributed shared memory is the on-chip
-//    network between the producer and consumer SMs: partials and h never
-//    leave the cluster.  Data crosses it only by st.async, counted on the
-//    receiver's mbarrier, so no step waits on a memory fence; a relaxed
-//    cluster barrier per chunk says when a buffer may be written again,
-//    and the down product of chunk j - 1 runs while chunk j's partials are
-//    in flight.  Each weight element is read once per 64 rows, from L2.
-//    At large T the kernel is bound by the operations (6 T D F at 989
-//    TFLOP/s); what holds it back on this card is the L2 traffic (3 D F x 2
-//    bytes per 64 rows), mma.sync fed from shared memory, and the exchange
-//    once per chunk.  A cluster's 8 CTAs must share a GPC, so fewer than
-//    132 / 8 clusters run at once (cudaOccupancyMaxActiveClusters; the
-//    wrapper sizes its splits by it).  With F split over clusters (short
-//    T), each split writes an fp32 partial that fused_mlp_kernel_reduce
-//    sums.
-// 2. bf16 decode (one tile of 4 rows: the serve path's 4 slots),
-//    fused_mlp_kernel_rows: bound by reading the weights once (3 D F x 2
-//    bytes at 3.35 TB/s: 40 us at qwen2.5-3b width).  F is split into even column ranges, one block each, a whole
-//    wave of blocks (two per SM); each thread keeps 2 kRowsInFlight 16-byte
-//    loads of Wg and Wu in flight, then twice as many rows of Wd; h stays
-//    in shared memory between the gate/up and the down product.
-// 3. float32, every T: the same rows kernel on the CUDA cores with fp32
-//    products (no TF32), the weights re-read once per kRowsBtF32 = 8 rows.
+//    slice, the 64-column blocks of the slice taken by the consumers in
+//    turn.  Each consumer has its own ring of kRing = 6 stages of 64 x 64
+//    weight tiles (8 KB; the layout is sized for the widest slice); a
+//    producer warp per ring issues the TMA loads in the order the
+//    consumer reads them, and every consumer warp frees a stage when the
+//    products that read it are done, one wgmma group after.  Data crosses
+//    the cluster only by st.async, counted on the receiver's mbarrier; a
+//    buffer is written again only after every reader has said, by a remote
+//    mbarrier arrive, that it is done with it.  The down product of chunk
+//    j - 1 runs while chunk j's partials are in flight.  The clusters in
+//    launch order walk the row tiles first, so the clusters that run
+//    together read the same weight tiles from L2.
+//    Bound: at large T the operations (6 T D F at 989 TFLOP/s).  What
+//    holds it back (PERF.md): the m64n64 products, one dependent chain a
+//    consumer, take most of the time even with every load removed; the
+//    loads and the exchange once per chunk add the rest.  A wider N or a
+//    second chain needs registers that the out slice holds at DC = 640.  Fewer than 132 / 8 clusters run at once
+//    (cudaOccupancyMaxActiveClusters; the wrapper sizes its F splits by
+//    it).  TMA needs 16-byte row pitches: the wrapper pads D and F to
+//    multiples of 8.
+// 2. bf16 decode (one tile of 4 rows: the serve path's 4 slots) and
+//    float32 (every T), fused_mlp_kernel_rows: bound by reading the
+//    weights once (3 D F x 2 bytes at 3.35 TB/s: 40 us at qwen2.5-3b
+//    width, 251 us at qwen1.5-32b's).  F is split into even column
+//    ranges, one block each, a whole wave of blocks (two per SM); x is
+//    staged once in shared memory as fp32 (whole up to kRowsXBytes: D =
+//    5120 at 4 bf16 rows), by 16-byte loads; each thread keeps 2
+//    kRowsInFlight 16-byte loads of Wg and Wu in flight, then twice as
+//    many rows of Wd; h stays in shared memory between the gate/up and
+//    the down product.  float32 runs on the CUDA cores with fp32 products
+//    (no TF32), the weights re-read once per kRowsBtF32 = 8 rows.
+// 3. bf16 prefill of one row tile (5 <= T <= 64) at D <= 2560,
+//    fused_mlp_kernel_cluster: the same hand-off on mma.sync m16n8k16 fed
+//    by ldmatrix, 8 warps a CTA, weight stripes by cp.async, x slice and
+//    out slice as in regime 1 (D-slice tiles 64, 128, 256, 320 columns),
+//    one relaxed cluster barrier a chunk.  Such a call streams every
+//    weight once from HBM, and this kernel does that faster than regime 1
+//    (PERF.md), which takes every longer call.
+// With F split over clusters (short T), each split of a cluster regime
+// writes an fp32 partial that fused_mlp_kernel_reduce sums.
 //
-// Determinism.  No atomics: every sum has a fixed order (the cluster's
-// rank-order sums, each block's chunks in order, and the reduction of
-// per-split partials in a fixed order), so two calls on the same inputs
-// give the same bits.  Ragged T, D and F are masked (zero-filled in
-// shared memory, stores masked); 16-byte copies are used where the widths
-// and pointers allow, element loads elsewhere.
+// Determinism.  No atomics: every sum has a fixed order (the tensor cores'
+// own, the cluster's rank-order sums, each block's chunks in order, and
+// the reduction of per-split partials in a fixed order), so two calls on
+// the same inputs give the same bits.  Ragged T, D and F are masked (zero-
+// filled by TMA or in shared memory, stores masked).
 
 #include <cooperative_groups.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -122,11 +147,11 @@ __device__ __forceinline__ void widen(const uint4& raw, float (&v)[VEC]) {
 }
 
 // ---------------------------------------------------------------------------
-// Regimes 2 and 3: one block per (BT-row tile, range of F columns); the
-// ranges split F evenly in 16-byte groups, so that the blocks of a decode
-// call read the same bytes.  The block walks its range in kBF-wide chunks.
+// Regime 2: one block per (BT-row tile, range of F columns); the ranges
+// split F evenly in 16-byte groups, so that the blocks of a decode call
+// read the same bytes.  The block walks its range in kBF-wide chunks.
 // Grid: (row tiles, splits).  x is staged in shared memory as fp32, whole
-// if its BT x D fits `x_cols` columns (once per call), else in pieces.
+// if its BT x D fits `x_cols` columns (once per block), else in pieces.
 //   phase 1: g, u (BT x kBF) = x Wg, x Wu.  Thread (column vector v, D row
 //            group dg) reads 16-byte vectors of Wg and Wu rows dg, dg + DG,
 //            ...; the DG partial sums meet by warp shuffles, then in shared
@@ -166,16 +191,40 @@ fused_mlp_kernel_rows(const T* __restrict__ x, const T* __restrict__ wg,
   const bool x_resident = d <= x_cols;
   float* ws_s = ws + static_cast<size_t>(split) * n_t * d;
 
-  auto stage_x = [&](int d0, int dk) {
-    for (int i = tid; i < BT * x_cols; i += kThreads) {
-      const int t = i / x_cols;
-      const int k = i % x_cols;
-      x_s[i] = (t0 + t < n_t && k < dk)
-                   ? to_f32(x[static_cast<size_t>(t0 + t) * d + d0 + k])
-                   : 0.f;
+  // x[t0.., d0 .. d0 + dk) as fp32; vec: 16-byte loads (VECOK: x_cols
+  // and dk are then multiples of VEC)
+  auto stage_x = [&](int d0, int dk, bool vec) {
+    if (vec) {
+      const int per_row = x_cols / VEC;
+      for (int i = tid; i < BT * per_row; i += kThreads) {
+        const int t = i / per_row;
+        const int k = (i % per_row) * VEC;
+        float e[VEC];
+        if (t0 + t < n_t && k < dk) {
+          widen<T, VEC>(load_raw<T, true>(
+                            x + static_cast<size_t>(t0 + t) * d + d0 + k, VEC),
+                        e);
+        } else {
+#pragma unroll
+          for (int q = 0; q < VEC; ++q) e[q] = 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < VEC; q += 4) {
+          *reinterpret_cast<float4*>(x_s + t * x_cols + k + q) =
+              make_float4(e[q], e[q + 1], e[q + 2], e[q + 3]);
+        }
+      }
+    } else {
+      for (int i = tid; i < BT * x_cols; i += kThreads) {
+        const int t = i / x_cols;
+        const int k = i % x_cols;
+        x_s[i] = (t0 + t < n_t && k < dk)
+                     ? to_f32(x[static_cast<size_t>(t0 + t) * d + d0 + k])
+                     : 0.f;
+      }
     }
   };
-  if (x_resident) stage_x(0, d);
+  if (x_resident) stage_x(0, d, VECOK);
 
   for (int f0 = f_begin; f0 < f_end; f0 += kBF) {
     const int fc = f0 + v * VEC;         // this thread's first column
@@ -196,7 +245,7 @@ fused_mlp_kernel_rows(const T* __restrict__ x, const T* __restrict__ wg,
       const int dk = min(x_cols, d - d0);
       if (!x_resident) {
         __syncthreads();                 // the previous piece is consumed
-        stage_x(d0, dk);
+        stage_x(d0, dk, false);
       }
       __syncthreads();
       if (f_valid > 0) {
@@ -356,13 +405,116 @@ fused_mlp_kernel_reduce(const float* __restrict__ ws, T* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// Regime 1: bf16 prefill on the tensor cores across a cluster of kC CTAs.
+// What both cluster regimes share: distributed shared memory, mbarriers.
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
+
+constexpr int kTileBytes = 64 * 64 * 2;  // one 64 x 64 bf16 tile (a TMA box)
+constexpr int kMaxDC = 640;              // widest D-slice a CTA owns
+constexpr int kMaxNK = kMaxDC / 64;      // its 64-column blocks
+constexpr int kMaxNBW = (kMaxNK + 1) / 2;  // down blocks of a warpgroup
+constexpr int kOwn = kBF / kC;           // columns of g, u a CTA reduces
+constexpr int kWgThreads = 384;          // a producer and two consumer
+                                         // warpgroups
+constexpr int kSmemLimit = 232448;       // one CTA's shared memory
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+// Cluster barrier, every thread of every CTA: release, then acquire.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// mbarriers in shared memory (32-bit shared addresses): init (one thread,
+// before a cluster_sync), arm a phase with the bytes it awaits, arrive
+// (here or, by a cluster address, in a peer), wait for a phase by its
+// parity.  A wait still spinning after 20 s traps: a fault in the
+// hand-off then ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t cluster_bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          cluster_bar)
+      : "memory");
+}
+// CLUSTER: acquire at cluster scope, for a phase that peers complete
+template <bool CLUSTER>
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  if (CLUSTER) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+  return done != 0;
+}
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+template <bool CLUSTER = false>
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t start = 0;
+  for (uint32_t tries = 1; !mbar_try<CLUSTER>(bar, parity); ++tries) {
+    if (tries % 1024 == 0) {
+      const uint64_t now = global_ns();
+      if (start == 0) start = now;
+      if (now - start > 20000000000ull) asm volatile("trap;");
+    }
+  }
+}
+// The address of shared-memory location `addr` of this CTA in CTA `rank`.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+// 16 bytes into a peer's shared memory; the peer's mbarrier `bar` counts
+// them when they have landed.
+__device__ __forceinline__ void st_async16(uint32_t addr, uint4 v,
+                                           uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+      "[%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+      "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+// ---------------------------------------------------------------------------
+// Regime 3: bf16 prefill of one row tile (T <= 64) at D <= 2560, mma.sync
+// across a cluster of kC CTAs.
+// ---------------------------------------------------------------------------
 // 16-byte async copy; src_bytes = 0 fills the destination with zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -436,51 +588,6 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// mbarriers in shared memory: init (one thread, before a cluster_sync),
-// arm a phase with the bytes it awaits, wait for a phase by its parity.
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(count));
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "{\n .reg .b64 st;\n"
-      " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
-          smem_u32(bar)), "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      "WAIT:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      " @!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-}
-// The address of this CTA's shared-memory location p in CTA `rank`.
-__device__ __forceinline__ uint32_t mapa(const void* p, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
-  return r;
-}
-// 16 bytes into a peer's shared memory; the peer's mbarrier `bar` counts
-// them when they have landed.
-__device__ __forceinline__ void st_async16(uint32_t addr, uint4 v,
-                                           uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
-      "[%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(addr), "r"(v.x), "r"(v.y),
-      "r"(v.z), "r"(v.w), "r"(bar)
-      : "memory");
 }
 
 // Shared-memory layout of one CTA for a D-slice tile of DC columns (byte
@@ -570,8 +677,8 @@ fused_mlp_kernel_cluster(const bf16* __restrict__ x,
   bf16* wds = reinterpret_cast<bf16*>(smem + L::kWd);
   bf16* hs = reinterpret_cast<bf16*>(smem + L::kH);
   float* recv = reinterpret_cast<float*>(smem + L::kRecv);
-  uint64_t* bar_recv = reinterpret_cast<uint64_t*>(smem + L::kBar);
-  uint64_t* bar_h = bar_recv + 1;        // [2], one per h buffer
+  const uint32_t bar_recv = smem_u32(smem + L::kBar);
+  const uint32_t bar_h = bar_recv + 8;   // [2], one per h buffer
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -615,7 +722,8 @@ fused_mlp_kernel_cluster(const bf16* __restrict__ x,
   if (tid == 0) {
     mbar_init(bar_recv, 1);
     mbar_init(bar_h, 1);
-    mbar_init(bar_h + 1, 1);
+    mbar_init(bar_h + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   cluster_sync();                        // every CTA's mbarriers are ready
   cluster_arrive_relaxed();              // X(-1): nothing in use yet
@@ -697,16 +805,16 @@ fused_mlp_kernel_cluster(const bf16* __restrict__ x,
                                __float_as_uint(su0), __float_as_uint(su1));
           const int owner = wn * 2 + q;
           const uint32_t bar = mapa(bar_recv, owner);
-          st_async16(mapa(g, owner), vg, bar);
-          st_async16(mapa(u, owner), vu, bar);
+          st_async16(mapa(smem_u32(g), owner), vg, bar);
+          st_async16(mapa(smem_u32(u), owner), vu, bar);
         }
       }
     }
 
     // (iii) of the previous chunk, while the peers catch up
     if (j > 0) {
-      if (tid == 0) mbar_expect_tx(bar_h + (j - 1) % 2, L::kHBytes);
-      mbar_wait(bar_h + (j - 1) % 2, ((j - 1) / 2) & 1);   // h(j - 1)
+      if (tid == 0) mbar_expect_tx(bar_h + (j - 1) % 2 * 8, L::kHBytes);
+      mbar_wait(bar_h + (j - 1) % 2 * 8, ((j - 1) / 2) & 1);   // h(j - 1)
       cp_async_wait<1>();                // Wd of chunk - 1
       __syncthreads();
       down_product<DC>(acc, hs + ((j - 1) % 2) * kBT * L::WP, wds, lane, wm,
@@ -753,7 +861,7 @@ fused_mlp_kernel_cluster(const bf16* __restrict__ x,
           hs + (j % 2) * kBT * L::WP + row * L::WP + rank * L::kOwn;
 #pragma unroll
       for (int r = 2 * (tid % 4); r < 2 * (tid % 4) + 2; ++r) {
-        st_async16(mapa(hj, r), hv, mapa(bar_h + j % 2, r));
+        st_async16(mapa(smem_u32(hj), r), hv, mapa(bar_h + j % 2 * 8, r));
       }
     }
     cluster_arrive_relaxed();            // X(j)
@@ -763,8 +871,8 @@ fused_mlp_kernel_cluster(const bf16* __restrict__ x,
   cluster_wait();
   if (c_end > c_begin) {
     const int j = c_end - c_begin - 1;
-    if (tid == 0) mbar_expect_tx(bar_h + j % 2, L::kHBytes);
-    mbar_wait(bar_h + j % 2, (j / 2) & 1);
+    if (tid == 0) mbar_expect_tx(bar_h + j % 2 * 8, L::kHBytes);
+    mbar_wait(bar_h + j % 2 * 8, (j / 2) & 1);
     cp_async_wait<0>();
     __syncthreads();
     down_product<DC>(acc, hs + (j % 2) * kBT * L::WP, wds, lane, wm, wn);
@@ -798,15 +906,396 @@ fused_mlp_kernel_cluster(const bf16* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
+// Regime 1: bf16 prefill, wgmma fed by TMA across a cluster of kC CTAs.
+// ---------------------------------------------------------------------------
+// One 64 x 64 tile of a 2-D tensor map at (column c0, row c1) into shared
+// memory, counted on `bar`; parts outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* tm,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a wgmma operand in the 128-byte
+// swizzled layout: K-major (x, h: rows of 64 K values) with lbo 16,
+// MN-major (the weight tiles: rows of 64 N values, one row a K index)
+// with lbo the distance to the next 64 N columns; sbo 1024 = 8 rows.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+// keep the compiler from moving accumulator reads or writes across wgmma
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// d (64x64 fp32 over the warpgroup, 32 a thread) = (accumulate ? d : 0)
+// + a (64x16, K-major, shared) b (16x64, MN-major, shared)
+__device__ __forceinline__ void wgmma_kn(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d (+)= a (64 x 64 K-major tile at a_addr) b (64 x 64 MN-major tile at
+// b_addr): four k16 steps, issued as one wgmma group and not waited for
+__device__ __forceinline__ void tile_issue(float (&d)[32], uint32_t a_addr,
+                                           uint32_t b_addr, bool accumulate) {
+  fence_regs(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_kn(d, wgmma_desc(a_addr + kk * 32, 16, 1024),
+             wgmma_desc(b_addr + kk * 16 * 128, 64 * 128, 1024),
+             accumulate || kk > 0);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  fence_regs(d);
+}
+// wait until at most N of this warpgroup's wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory layout of one CTA (byte offsets from a 1024-byte aligned
+// base; the swizzled tiles need that alignment).  x: kMaxNK 64-column
+// blocks of the slice; h: two 64 x 64 buffers (peers write chunk j's while
+// this CTA still reads chunk j - 1's); two rings of kRing weight tiles,
+// one per warpgroup; recv: the fp32 partial g and u of this CTA's kOwn
+// columns from each CTA; then the mbarriers.
+struct WgSmem {
+  static constexpr int kX = 0;
+  static constexpr int kH = kX + kMaxNK * kTileBytes;
+  static constexpr int kRingBase = kH + 2 * kTileBytes;
+  static constexpr int kRecvBytes = 2 * kC * kBT * kOwn * 4;
+  static constexpr int kHBytes = kC * kBT * kOwn * 2;    // h arriving a chunk
+  static constexpr int kBarSlots = 64;
+  static constexpr int kRing =
+      (kSmemLimit - 1024 - kRingBase - kRecvBytes - kBarSlots * 8) /
+      (2 * kTileBytes);
+  static constexpr int kRecv = kRingBase + 2 * kRing * kTileBytes;
+  // mbarriers: full[2][kRing], empty[2][kRing], x, recv, h[2], recv_ok,
+  // h_ok[2]
+  static constexpr int kBar = kRecv + kRecvBytes;
+  static constexpr int kFull = kBar;
+  static constexpr int kEmpty = kFull + 2 * kRing * 8;
+  static constexpr int kXFull = kEmpty + 2 * kRing * 8;
+  static constexpr int kRecvFull = kXFull + 8;
+  static constexpr int kHFull = kRecvFull + 8;
+  static constexpr int kRecvOk = kHFull + 16;
+  static constexpr int kHOk = kRecvOk + 8;
+  static constexpr int kEnd = kHOk + 16;
+  static constexpr int kBytes = kEnd + 1024;             // + the alignment
+  static_assert(kRing >= 2 && 4 * kRing + 7 <= kBarSlots, "barriers");
+  static_assert(kBytes <= kSmemLimit, "one CTA's shared memory");
+};
+
+// Grid: kC * splits * row tiles CTAs along x, in clusters of kC, the row
+// tiles fastest.  CTA `rank` of a cluster owns D columns [rank * dc,
+// rank * dc + dc), dc = 64 nk.  Three warpgroups: warpgroup 0 produces
+// (its warp w < 2 issues the TMA loads of ring w; it keeps 40 registers a
+// thread), warpgroups 1 and 2 consume rings 0 (gate) and 1 (up) and hold
+// the out slice (232 registers a thread).
+//
+// Step s = 0 .. nch of a split's nch chunks, in every CTA: U(s), the
+// partial products of chunk s, and their push to the owners once every
+// owner has read its recv of chunk s - 1 (recv_ok); D(s - 1), the down
+// product, once h(s - 1) has arrived; X(s), the exchange: the owned
+// columns summed in rank order once recv is full, recv_ok signalled to
+// every CTA, h_ok(s - 1) too (D(s - 1) is done), and h(s) pushed to every
+// CTA once every CTA has done D(s - 2).  Only stores and mbarrier arrives
+// cross the cluster.
+__global__ void __launch_bounds__(kWgThreads, 1)
+fused_mlp_kernel_wgmma(const __grid_constant__ CUtensorMap tm_x,
+                       const __grid_constant__ CUtensorMap tm_g,
+                       const __grid_constant__ CUtensorMap tm_u,
+                       const __grid_constant__ CUtensorMap tm_d,
+                       float* __restrict__ ws, bf16* __restrict__ out,
+                       int n_t, int d, int f, int nk, int chunks_per_split) {
+  using L = WgSmem;
+  constexpr int R = L::kRing;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  float* recv = reinterpret_cast<float*>(
+      smem_raw + (base - smem_u32(smem_raw)) + L::kRecv);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int wg = tid / 128 - 1;          // consumer: 0 gate, 1 up; -1 producer
+  const int wtid = tid % 128;
+  const int wwarp = wtid / 32;           // warp within the warpgroup
+  // clusters in launch order walk the row tiles first, so that the
+  // clusters that run together read the same weight tiles (from L2)
+  const int n_tiles = (n_t + kBT - 1) / kBT;
+  const int cl = static_cast<int>(blockIdx.x) / kC;
+  const int split = cl / n_tiles;
+  const int t0 = (cl % n_tiles) * kBT;
+  const int d0 = rank * nk * 64;
+  const int n_chunks = (f + kBF - 1) / kBF;
+  const int c_begin = split * chunks_per_split;
+  const int nch = min(n_chunks, c_begin + chunks_per_split) - c_begin;
+
+  const uint32_t x_full = base + L::kXFull;
+  const uint32_t recv_full = base + L::kRecvFull;
+  const uint32_t h_full = base + L::kHFull;       // [2]
+  const uint32_t recv_ok = base + L::kRecvOk;
+  const uint32_t h_ok = base + L::kHOk;           // [2]
+
+  if (tid == 0) {
+    for (int s = 0; s < 2 * R; ++s) {
+      mbar_init(base + L::kFull + s * 8, 1);
+      mbar_init(base + L::kEmpty + s * 8, 4);   // one arrive a warp
+    }
+    mbar_init(x_full, 1);
+    mbar_init(recv_full, 1);
+    mbar_init(h_full, 1);
+    mbar_init(h_full + 8, 1);
+    mbar_init(recv_ok, kC);
+    mbar_init(h_ok, kC);
+    mbar_init(h_ok + 8, kC);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();                        // every CTA's mbarriers are ready
+
+  if (wg < 0) {
+    // ---- producer: warp w < 2 streams ring w; its tiles in the order
+    // its consumer reads them, each once the consumer freed its stage ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (wwarp < 2 && lane == 0) {
+      const int w = wwarp;
+      const int nbw = (nk + 1 - w) / 2;
+      const uint32_t ring = base + L::kRingBase + w * R * kTileBytes;
+      const uint32_t full = base + L::kFull + w * R * 8;
+      const uint32_t empty = base + L::kEmpty + w * R * 8;
+      if (w == 0) {
+        mbar_expect_tx(x_full, nk * kTileBytes);
+        for (int k = 0; k < nk; ++k) {
+          tma_load(base + L::kX + k * kTileBytes, &tm_x, d0 + k * 64, t0,
+                   x_full);
+        }
+      }
+      // the tiles in the order the consumer reads them, step by step:
+      // U(s), the nk 64-row stripes of the gate (w 0) or up (w 1)
+      // weights over the slice for chunk s, then D(s - 1), the nbw
+      // 64-column blocks 2 i + w of Wd[chunk s - 1 rows, slice]
+      const CUtensorMap* up = w ? &tm_u : &tm_g;
+      int slot = 0, n = 0;
+      uint32_t phase = 0;                // parity of the stage's use
+      auto put = [&](const CUtensorMap* map, int col, int row) {
+        if (n++ >= R) mbar_wait(empty + slot * 8, phase ^ 1);
+        mbar_expect_tx(full + slot * 8, kTileBytes);
+        tma_load(ring + slot * kTileBytes, map, col, row, full + slot * 8);
+        if (++slot == R) {
+          slot = 0;
+          phase ^= 1;
+        }
+      };
+      for (int s = 0; s <= nch; ++s) {
+        if (s < nch) {
+          for (int k = 0; k < nk; ++k) {
+            put(up, (c_begin + s) * kBF, d0 + k * 64);
+          }
+        }
+        if (s > 0) {
+          for (int i = 0; i < nbw; ++i) {
+            put(&tm_d, d0 + (2 * i + w) * 64, (c_begin + s - 1) * kBF);
+          }
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int ctid = tid - 128;          // 0 .. 255 over both consumers
+    const int nbw = (nk + 1 - wg) / 2;   // down blocks of this warpgroup
+    const uint32_t ring = base + L::kRingBase + wg * R * kTileBytes;
+    const uint32_t full = base + L::kFull + wg * R * 8;
+    const uint32_t empty = base + L::kEmpty + wg * R * 8;
+    // this warp is done with item n: free its stage
+    auto release = [&](int n) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + (n % R) * 8);
+    };
+
+    float acc[kMaxNBW][32];              // out[:, blocks 2 i + wg]
+#pragma unroll
+    for (int i = 0; i < kMaxNBW; ++i) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[i][e] = 0.f;
+    }
+    float part[32];                      // partial g (wg 0) or u (wg 1)
+
+    int n = 0;                           // this warpgroup's next item
+    for (int s = 0; s <= nch; ++s) {
+      if (s < nch) {
+        // ---- U(s): part = x[:, slice] W[slice, chunk s]; each tile's
+        // products issued once it has landed, the previous tile's stage
+        // freed once its products are done ----
+        if (s == 0) mbar_wait(x_full, 0);
+        for (int k = 0; k < nk; ++k, ++n) {
+          mbar_wait(full + (n % R) * 8, (n / R) & 1);
+          tile_issue(part, base + L::kX + k * kTileBytes,
+                     ring + (n % R) * kTileBytes, k > 0);
+          if (k > 0) {
+            wgmma_wait<1>();
+            release(n - 1);
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(part);
+        release(n - 1);
+        // ---- push each 8-column group of part to its owner ----
+        // lanes l and l ^ 1 hold columns c, c + 1 and c + 2, c + 3 of
+        // rows r and r + 8; one shuffle gives the even lane 4 columns of
+        // row r and the odd lane 4 of row r + 8, pushed as one 16-byte
+        // vector each
+        if (s > 0) mbar_wait<true>(recv_ok, (s - 1) & 1);
+        const bool odd = lane & 1;
+        const int c4 = ((lane % 4) / 2) * 4;
+        const int row = wwarp * 16 + lane / 4 + (odd ? 8 : 0);
+        const uint32_t dst =
+            smem_u32(recv + ((wg * kC + rank) * kBT + row) * kOwn + c4);
+#pragma unroll
+        for (int q = 0; q < kC; ++q) {   // columns 8 q .. 8 q + 7 -> CTA q
+          const float* p = part + 4 * q;
+          const float s0 = __shfl_xor_sync(0xffffffffu, odd ? p[0] : p[2], 1);
+          const float s1 = __shfl_xor_sync(0xffffffffu, odd ? p[1] : p[3], 1);
+          const uint4 v =
+              odd ? make_uint4(__float_as_uint(s0), __float_as_uint(s1),
+                               __float_as_uint(p[2]), __float_as_uint(p[3]))
+                  : make_uint4(__float_as_uint(p[0]), __float_as_uint(p[1]),
+                               __float_as_uint(s0), __float_as_uint(s1));
+          st_async16(mapa(dst, q), v, mapa(recv_full, q));
+        }
+      }
+      if (s > 0) {
+        // ---- D(s - 1): out[:, own blocks] += h(s - 1) Wd[chunk, block] ----
+        const int j = s - 1;
+        if (ctid == 0) mbar_expect_tx(h_full + (j % 2) * 8, L::kHBytes);
+        mbar_wait<true>(h_full + (j % 2) * 8, (j / 2) & 1);
+        // h arrived by st.async; wgmma reads it through the async proxy
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        const uint32_t h_tile = base + L::kH + (j % 2) * kTileBytes;
+#pragma unroll
+        for (int i = 0; i < kMaxNBW; ++i) {
+          if (i < nbw) {
+            mbar_wait(full + (n % R) * 8, (n / R) & 1);
+            tile_issue(acc[i], h_tile, ring + (n % R) * kTileBytes, true);
+            if (i > 0) {
+              wgmma_wait<1>();
+              release(n - 1);
+            }
+            ++n;
+          }
+        }
+        if (nbw > 0) {
+          wgmma_wait<0>();
+          release(n - 1);
+        }
+#pragma unroll
+        for (int i = 0; i < kMaxNBW; ++i) fence_regs(acc[i]);
+      }
+      if (s < nch) {
+        // ---- X(s): this CTA's kOwn columns of g and u summed over the
+        // kC partials in rank order, h formed in fp32, rounded to bf16 and
+        // pushed into every CTA's h buffer of chunk s ----
+        if (ctid == 0) mbar_expect_tx(recv_full, L::kRecvBytes);
+        mbar_wait<true>(recv_full, s & 1);
+        const int row = ctid / 4;
+        const int c2 = (ctid % 4) * 2;
+        float g0 = 0.f, g1 = 0.f, u0 = 0.f, u1 = 0.f;
+#pragma unroll
+        for (int r = 0; r < kC; ++r) {
+          const float* p = recv + (r * kBT + row) * kOwn + c2;
+          const float2 g = *reinterpret_cast<const float2*>(p);
+          const float2 u =
+              *reinterpret_cast<const float2*>(p + kC * kBT * kOwn);
+          g0 += g.x;
+          g1 += g.y;
+          u0 += u.x;
+          u1 += u.y;
+        }
+        // both consumers: recv read, D(s - 1) done
+        asm volatile("bar.sync 1, 256;\n" ::: "memory");
+        if (ctid < kC) mbar_arrive_cluster(mapa(recv_ok, ctid));
+        if (s > 0 && ctid >= kC && ctid < 2 * kC) {
+          mbar_arrive_cluster(mapa(h_ok + ((s - 1) % 2) * 8, ctid - kC));
+        }
+        const __nv_bfloat162 h2 =
+            __floats2bfloat162_rn(silu_mul(g0, u0), silu_mul(g1, u1));
+        // the 4 lanes of a row gather its kOwn = 8 columns (16 bytes);
+        // lane i of the 4 pushes them into CTAs 2 i and 2 i + 1, at chunk
+        // `rank` of the row in the swizzled layout
+        uint32_t h4[4];
+        const uint32_t mine = *reinterpret_cast<const uint32_t*>(&h2);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          h4[i] = __shfl_sync(0xffffffffu, mine, (lane & ~3) + i);
+        }
+        const uint4 hv = make_uint4(h4[0], h4[1], h4[2], h4[3]);
+        const uint32_t hj = base + L::kH + (s % 2) * kTileBytes + row * 128 +
+                            ((rank ^ (row & 7)) << 4);
+        if (s >= 2) mbar_wait<true>(h_ok + (s % 2) * 8, ((s - 2) / 2) & 1);
+#pragma unroll
+        for (int r = 2 * (ctid % 4); r < 2 * (ctid % 4) + 2; ++r) {
+          st_async16(mapa(hj, r), hv, mapa(h_full + (s % 2) * 8, r));
+        }
+      }
+    }
+
+    // one split: the result in bf16; else this split's fp32 partial (the
+    // stores need no peer, so they go before the last cluster barrier)
+    float* ws_s = ws + static_cast<size_t>(split) * n_t * d;
+#pragma unroll
+    for (int i = 0; i < kMaxNBW; ++i) {
+      if (i >= nbw) continue;
+      const int col0 = d0 + (2 * i + wg) * 64 + (lane % 4) * 2;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int col = col0 + q * 8;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = t0 + wwarp * 16 + lane / 4 + half * 8;
+          if (row >= n_t || col >= d) continue;
+          const size_t o = static_cast<size_t>(row) * d + col;
+          const float a = acc[i][4 * q + 2 * half];
+          const float b = acc[i][4 * q + 2 * half + 1];
+          if (out != nullptr) {
+            *reinterpret_cast<__nv_bfloat162*>(out + o) =
+                __floats2bfloat162_rn(a, b);
+          } else {
+            *reinterpret_cast<float2*>(ws_s + o) = make_float2(a, b);
+          }
+        }
+      }
+    }
+  }
+  // no CTA leaves while a peer may still write its shared memory
+  cluster_sync();
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// Columns of D each CTA of a cluster owns: D / kC rounded up to 8 elements
-// (16 bytes), so that every slice starts on a 16-byte boundary.
-int cluster_dc(int d) { return ((d + kC - 1) / kC + 7) / 8 * 8; }
+// 64-column blocks of D each CTA of a cluster owns: D / kC rounded up to a
+// multiple of 64, so that slices never overlap and every TMA box of x and
+// Wg, Wu rows lies in one slice (or past D, where TMA reads zeros).
+int cluster_nk(int d) { return ((d + kC - 1) / kC + 63) / 64; }
 
 template <typename T>
 cudaError_t launch_reduce(const float* ws, T* out, size_t n, int n_split,
@@ -818,6 +1307,93 @@ cudaError_t launch_reduce(const float* ws, T* out, size_t n, int n_split,
                                stream>>>(ws, out, n, n_split, groups);
   return cudaGetLastError();
 }
+
+// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint (no
+// link against libcuda).
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess) {
+      p = nullptr;
+    }
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }();
+  return fn;
+}
+
+// A (rows, cols) row-major bf16 tensor in 64 x 64 boxes, 128-byte swizzle,
+// zeros outside (cols a multiple of 8, base 16-byte aligned).
+bool tensor_map(CUtensorMap* m, const void* ptr, int rows, int cols) {
+  const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, 64};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaLaunchConfig_t wgmma_config(int n_split, int n_tiles, cudaStream_t stream,
+                                cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kC * n_split * n_tiles, 1, 1);
+  cfg.blockDim = dim3(kWgThreads, 1, 1);
+  cfg.dynamicSmemBytes = WgSmem::kBytes;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Dynamic shared memory above 48 KB must be allowed once per kernel.
+cudaError_t wgmma_set_smem() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      fused_mlp_kernel_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      WgSmem::kBytes);
+  return err;
+}
+
+// With one split the kernel writes the bf16 result itself; else each
+// split writes its fp32 partial to ws and fused_mlp_kernel_reduce sums.
+cudaError_t launch_wgmma(const bf16* x, const bf16* wg, const bf16* wu,
+                         const bf16* wd, float* ws, bf16* out, int n_t,
+                         int d, int f, int n_split, int cps,
+                         cudaStream_t stream) {
+  cudaError_t err = wgmma_set_smem();
+  if (err != cudaSuccess) return err;
+  CUtensorMap tx, tg, tu, td;
+  if (!tensor_map(&tx, x, n_t, d) || !tensor_map(&tg, wg, d, f) ||
+      !tensor_map(&tu, wu, d, f) || !tensor_map(&td, wd, f, d)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      wgmma_config(n_split, (n_t + kBT - 1) / kBT, stream, attr);
+  err = cudaLaunchKernelEx(&cfg, fused_mlp_kernel_wgmma, tx, tg, tu, td, ws,
+                           n_split == 1 ? out : nullptr, n_t, d, f,
+                           cluster_nk(d), cps);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err == cudaSuccess && n_split > 1) {
+    err = launch_reduce(ws, out, static_cast<size_t>(n_t) * d, n_split,
+                        stream);
+  }
+  return err;
+}
+
+// Columns of D each CTA of an mma.sync cluster owns: D / kC rounded up to
+// 8 elements (16 bytes), so that every slice starts on a 16-byte boundary.
+int cluster_dc(int d) { return ((d + kC - 1) / kC + 7) / 8 * 8; }
 
 template <int DC>
 cudaLaunchConfig_t cluster_config(int n_split, int n_tiles,
@@ -900,19 +1476,22 @@ constexpr int kRowsBtF32 = 8;
 constexpr int kRowsBtBf16 = 4;
 
 // Shared memory the rows kernel stages x in: the whole (BT x D) block of
-// x where it fits, else pieces of as many columns as fit.
-constexpr int kRowsXBytes = 64 * 1024;
+// x where it fits, else pieces of as many columns as fit; with the static
+// buffers (17 KB in bf16, 34 KB in float32) two blocks still fit an SM.
+// bf16 at 4 rows holds D <= 5120 whole, float32 at 8 rows D <= 2048.
+template <typename T>
+constexpr int kRowsXBytes = sizeof(T) == 2 ? 80 * 1024 : 64 * 1024;
 
-template <int BT>
+template <typename T, int BT>
 int rows_x_cols(int d) {
-  return std::min(d, kRowsXBytes / (BT * 4));
+  return std::min(d, kRowsXBytes<T> / (BT * 4));
 }
 
 template <typename T, int BT, bool VECOK>
 cudaError_t rows_set_smem() {
   static const cudaError_t err = cudaFuncSetAttribute(
       fused_mlp_kernel_rows<T, BT, VECOK>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kRowsXBytes);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kRowsXBytes<T>);
   return err;
 }
 
@@ -922,7 +1501,7 @@ cudaError_t launch_rows(const T* x, const T* wg, const T* wu, const T* wd,
                         cudaStream_t stream) {
   cudaError_t err = rows_set_smem<T, BT, VECOK>();
   if (err != cudaSuccess) return err;
-  const int x_cols = rows_x_cols<BT>(d);
+  const int x_cols = rows_x_cols<T, BT>(d);
   const dim3 grid((n_t + BT - 1) / BT, n_split);
   fused_mlp_kernel_rows<T, BT, VECOK>
       <<<grid, kThreads, BT * x_cols * 4, stream>>>(x, wg, wu, wd, ws, n_t,
@@ -948,12 +1527,11 @@ int rows_blocks_per_sm(int d) {
   int n = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &n, fused_mlp_kernel_rows<T, BT, true>, kThreads,
-          BT * rows_x_cols<BT>(d) * 4) != cudaSuccess) {
+          BT * rows_x_cols<T, BT>(d) * 4) != cudaSuccess) {
     return -1;
   }
   return n;
 }
-
 
 }  // namespace
 
@@ -971,47 +1549,68 @@ int fused_mlp_rows_blocks_per_sm(int dtype, int d) {
   return -1;
 }
 
-// Clusters of the prefill regime that fit the card at once for a D-slice
-// tile of dc_tile columns (cudaOccupancyMaxActiveClusters); 0 if none
-// fits, negative on an error or an unknown tile.
+// Clusters that fit the card at once (cudaOccupancyMaxActiveClusters) of
+// the wgmma regime (dc_tile 0) or of the mma.sync regime's D-slice tile
+// dc_tile; 0 if none fits, negative on an error or an unknown tile.
 int fused_mlp_max_active_clusters(int dc_tile) {
   switch (dc_tile) {
+    case 0: break;
     case 64: return max_clusters<64>();
     case 128: return max_clusters<128>();
     case 256: return max_clusters<256>();
     case 320: return max_clusters<320>();
     default: return -1;
   }
+  if (wgmma_set_smem() != cudaSuccess) return -1;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = wgmma_config(1, 1, nullptr, attr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, fused_mlp_kernel_wgmma, &cfg) !=
+      cudaSuccess) {
+    return -1;
+  }
+  return n;
 }
 
 // x: (T, D); wg, wu: (D, F); wd: (F, D), row-major, one dtype (0 =
 // float32, 1 = bfloat16).  ws: n_split * T * D float32 scratch; out:
-// (T, D) in the inputs' dtype.  regime 0 = rows (any dtype), 1 = cluster
-// (bf16, D-slice tile dc_tile).  Cluster split s takes the kBF-wide F
-// chunks [s * cps, (s + 1) * cps); rows split s an even share of F's
-// 16-byte column groups, at least one (cps unused).  Launches the regime's kernel and
-// the reduce on `stream`; returns the first cudaError_t that is not
-// cudaSuccess.
+// (T, D) in the inputs' dtype.  regime 0 = rows (any dtype), 1 = wgmma
+// (bf16, D <= kC kMaxDC = 5120, D and F multiples of 8, 16-byte aligned
+// pointers), 2 = mma.sync cluster (bf16, D-slice tile dc_tile).  A
+// cluster regime's split s takes the kBF-wide F chunks [s * cps, (s + 1)
+// * cps); rows split s an even share of F's 16-byte column groups, at
+// least one (cps unused).  Launches the regime's kernel and the reduce on
+// `stream`; returns the first cudaError_t that is not cudaSuccess.
 int fused_mlp_launch(const void* x, const void* wg, const void* wu,
                      const void* wd, void* ws, void* out, int n_t, int d,
                      int f, int dtype, int regime, int dc_tile, int n_split,
                      int cps, void* stream) {
   const int n_chunks = (f + kBF - 1) / kBF;
+  const bool ptrs = aligned16(x) && aligned16(wg) && aligned16(wu) &&
+                    aligned16(wd);
   if (n_t <= 0 || d <= 0 || f <= 0 || n_t > fused_mlp_max_t() ||
       n_split <= 0 || n_split > 65535 ||
-      (regime == 1 && (cps <= 0 ||
-                       static_cast<long long>(n_split) * cps < n_chunks ||
-                       static_cast<long long>(n_split - 1) * cps >= n_chunks)) ||
+      ((regime == 1 || regime == 2) &&
+       (dtype != 1 || cps <= 0 ||
+        static_cast<long long>(n_split) * cps < n_chunks ||
+        static_cast<long long>(n_split - 1) * cps >= n_chunks)) ||
+      (regime == 1 && (d > kC * kMaxDC || d % 8 != 0 || f % 8 != 0 ||
+                       !ptrs || !aligned16(out))) ||
+      (regime == 2 && cluster_dc(d) > dc_tile) ||
       (regime == 0 && n_split > (dtype == 0 ? (f + 3) / 4 : (f + 7) / 8))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
-  const bool ptrs = aligned16(x) && aligned16(wg) && aligned16(wu) &&
-                    aligned16(wd);
   const size_t n = static_cast<size_t>(n_t) * d;
   cudaError_t err = cudaErrorInvalidValue;
-  if (regime == 1 && dtype == 1 && cluster_dc(d) <= dc_tile) {
+  if (regime == 1) {
+    err = launch_wgmma(static_cast<const bf16*>(x),
+                       static_cast<const bf16*>(wg),
+                       static_cast<const bf16*>(wu),
+                       static_cast<const bf16*>(wd), w,
+                       static_cast<bf16*>(out), n_t, d, f, n_split, cps, s);
+  } else if (regime == 2) {
     const bf16 *bx = static_cast<const bf16*>(x),
                *bg = static_cast<const bf16*>(wg),
                *bu = static_cast<const bf16*>(wu),

@@ -6,16 +6,25 @@ is handed from the two producer products to the down product on chip and
 never reaches device memory.  Three regimes, chosen by ``choose_regime``
 from T, D and the dtype (the source's header says what bounds each):
 
-* bf16 with at least ``PREFILL_MIN_T`` rows: tensor cores (``mma.sync``)
-  across a cluster of ``CLUSTER`` CTAs that share h through distributed
-  shared memory;
-* bf16 with fewer rows (decode): a bandwidth-bound kernel that splits F
-  over the SMs and reads the weights once with 16-byte loads;
-* float32, every T: the same kernel on the CUDA cores, fp32 products.
+* ``wgmma``, bf16 prefill (at least ``PREFILL_MIN_T`` rows) past one row
+  tile, or at D > 2560: warpgroup MMA (``wgmma``) fed by TMA, a producer
+  warpgroup and two consumer warpgroups a CTA, across a cluster of
+  ``CLUSTER`` CTAs that each own a 64-column-aligned slice of D (up to
+  ``WGMMA_MAX_DC``, so D <= 5120; a wider D raises) and share h through
+  distributed shared memory;
+* ``cluster``, bf16 prefill of one row tile (``PREFILL_MIN_T`` to
+  ``CLUSTER_BT`` rows) at D <= 2560: the same hand-off on ``mma.sync``,
+  which streams the weights of such a call faster (``PERF.md``);
+* ``rows``, bf16 with fewer rows (decode) and float32 at every T: a
+  bandwidth-bound kernel that splits F over the SMs and reads the weights
+  once with 16-byte loads (float32 on the CUDA cores, fp32 products).
 
 Where F is split over blocks, each split writes its fp32 partial into a
 workspace and the partials are summed in a fixed order, so two calls on
-the same inputs give the same bits.
+the same inputs give the same bits.  TMA reads rows on 16-byte pitches:
+for the ``wgmma`` regime a D or F that is not a multiple of 8, or an input
+not 16-byte aligned, is zero-padded into a copy first (no model has such
+a width).
 
 On a CPU tensor the wrapper computes the plain version, ``fused_mlp_ref``
 (the port of ``repro.kernels.ref.fused_mlp_ref``); on a CUDA tensor it
@@ -39,19 +48,27 @@ from . import build
 #: kernel dtype codes of ``fused_mlp_launch``
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: regime codes of ``fused_mlp_launch``
-_REGIMES = {"rows": 0, "cluster": 1}
+_REGIMES = {"rows": 0, "wgmma": 1, "cluster": 2}
 
 #: F columns per chunk, every regime (``kBF`` in the source)
 BF = 64
-#: CTAs per cluster and rows per cluster tile (``kC``, ``kBT``)
+#: CTAs per cluster and rows per cluster tile (``kC``, ``kBT``), both
+#: cluster regimes
 CLUSTER = 8
 CLUSTER_BT = 64
-#: D-slice widths the cluster kernel is built for: a CTA's slice of D is
-#: padded to the smallest that holds it; a wider D takes the rows regime
+#: the widest D-slice a CTA of the ``wgmma`` regime owns (``kMaxDC``): its
+#: out slice, 64 x 640 fp32, takes 160 of each consumer thread's 232
+#: registers, and its x slice and weight rings fill its shared memory.
+#: Slices are multiples of 64 columns (a TMA box, a wgmma tile), so
+#: D <= 5120 runs and a wider D raises
+WGMMA_MAX_DC = 640
+#: D-slice widths the ``cluster`` (mma.sync) kernel is built for: a CTA's
+#: slice of D, D / 8 rounded up to 16 bytes, is padded to the smallest
+#: that holds it (D <= 2560)
 CLUSTER_DC_TILES = (64, 128, 256, 320)
 #: a cluster's start (its x slice, the first stripes), in chunks' time
 CLUSTER_START_CHUNKS = 2
-#: bf16 rows from which the cluster regime runs.  Its time hardly grows
+#: bf16 rows from which a cluster regime runs.  Its time hardly grows
 #: with T up to one 64-row tile, while the rows regime reads the weights
 #: once per ``ROWS_BT`` rows; on the H100 the rows regime wins only for
 #: one 4-row tile, the serve path's 4 slots (PERF.md)
@@ -65,22 +82,42 @@ ROWS_WAVES = 4
 ROWS_MIN_COLS = 16
 
 
+def wgmma_dc(D: int) -> int:
+    """Columns of D each CTA of a ``wgmma`` cluster owns: D / CLUSTER
+    rounded up to a multiple of 64 (128 bytes of bf16), so that the
+    slices never overlap; the last ones may lie partly or wholly past D,
+    where TMA reads zeros."""
+    per_cta = -(-D // CLUSTER)
+    return -(-per_cta // 64) * 64
+
+
 def cluster_dc(D: int) -> int:
-    """Columns of D each CTA of a cluster owns: D / CLUSTER rounded up to
-    a multiple of 8 (16 bytes of bf16)."""
+    """Columns of D each CTA of a ``cluster`` (mma.sync) cluster owns:
+    D / CLUSTER rounded up to a multiple of 8 (16 bytes of bf16)."""
     per_cta = -(-D // CLUSTER)
     return -(-per_cta // 8) * 8
 
 
 def choose_regime(T: int, D: int, bf16: bool) -> Tuple[str, int]:
-    """(regime, D-slice tile) for a call: ``("cluster", tile)`` for bf16
-    with ``T >= PREFILL_MIN_T`` whose D-slice fits a tile, else
-    ``("rows", 0)``."""
+    """(regime, D-slice width) for a call.  bf16 with ``T >=
+    PREFILL_MIN_T``: ``("cluster", tile)`` for one row tile (``T <=
+    CLUSTER_BT``) whose ``cluster_dc(D)`` fits a ``CLUSTER_DC_TILES``
+    tile, else ``("wgmma", wgmma_dc(D))``; a ``wgmma`` D-slice wider than
+    ``WGMMA_MAX_DC`` raises (no regime of this card takes it: the rows
+    regime re-reads the weights every 4 rows).  Otherwise ``("rows",
+    0)``."""
     if bf16 and T >= PREFILL_MIN_T:
-        dc = cluster_dc(D)
-        for tile in CLUSTER_DC_TILES:
-            if tile >= dc:
-                return "cluster", tile
+        if T <= CLUSTER_BT:
+            fits = [t for t in CLUSTER_DC_TILES if t >= cluster_dc(D)]
+            if fits:
+                return "cluster", fits[0]
+        dc = wgmma_dc(D)
+        if dc > WGMMA_MAX_DC:
+            raise ValueError(
+                f"fused_mlp: bf16 prefill at D={D} needs {dc}-column "
+                f"D-slices, wider than the wgmma regime's {WGMMA_MAX_DC} "
+                f"(D <= {CLUSTER * WGMMA_MAX_DC})")
+        return "wgmma", dc
     return "rows", 0
 
 
@@ -107,7 +144,7 @@ def rows_splits(row_tiles: int, F: int, slots: int) -> int:
 
 
 def split_f(row_tiles: int, F: int, slots: int) -> Tuple[int, int]:
-    """(splits, chunks per split) of F's ``BF``-wide chunks for the
+    """(splits, chunks per split) of F's ``BF``-wide chunks for a
     cluster regime, where ``slots`` clusters fit the card at once.  A
     call takes about (waves of clusters) x (chunks a cluster sweeps +
     ``CLUSTER_START_CHUNKS``); take the split count that makes this
@@ -160,12 +197,14 @@ def _sm_count(index: int) -> int:
 
 @functools.cache
 def _cluster_slots(index: int, tile: int) -> int:
-    """Clusters of the prefill kernel that fit card ``index`` at once."""
+    """Clusters that fit card ``index`` at once: of the ``wgmma`` kernel
+    (``tile`` 0) or of the ``cluster`` kernel's D-slice tile ``tile``."""
     with torch.cuda.device(index):
         n = _library().fused_mlp_max_active_clusters(tile)
     if n <= 0:
         raise RuntimeError(f"fused_mlp: no {CLUSTER}-CTA cluster of the "
-                           f"D-slice tile {tile} fits this card ({n})")
+                           f"prefill kernel (tile {tile}) fits this card "
+                           f"({n})")
     return n
 
 
@@ -184,16 +223,39 @@ def _rows_slots(index: int, dtype: torch.dtype, D: int) -> int:
 def _plan(index: int, T: int, D: int, F: int, dtype: torch.dtype):
     """(regime code, D-slice tile, splits, chunks per split, workspace
     floats) of a call; a cluster call with one split needs no workspace."""
-    regime, tile = choose_regime(T, D, dtype == torch.bfloat16)
-    if regime == "cluster":
-        n_split, per = split_f(-(-T // CLUSTER_BT), F,
-                               _cluster_slots(index, tile))
-        ws = 0 if n_split == 1 else n_split * T * D
-    else:
+    regime, dc = choose_regime(T, D, dtype == torch.bfloat16)
+    tile = dc if regime == "cluster" else 0
+    if regime == "rows":
         n_split, per = rows_splits(-(-T // ROWS_BT[dtype]), F,
                                    _rows_slots(index, dtype, D)), 0
         ws = n_split * T * D
+    else:
+        n_split, per = split_f(-(-T // CLUSTER_BT), F,
+                               _cluster_slots(index, tile))
+        ws = 0 if n_split == 1 else n_split * T * D
     return _REGIMES[regime], tile, n_split, per, ws
+
+
+def pad_for_tma(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                w_down: torch.Tensor):
+    """The inputs as the ``wgmma`` regime's TMA reads them: as given where
+    D and F are multiples of 8 and every tensor starts on 16 bytes, else
+    zero-padded copies of D and F rounded up to multiples of 8 (the padding
+    adds zeros to every sum)."""
+    T, D = x.shape
+    F = w_gate.shape[1]
+    if D % 8 == 0 and F % 8 == 0 and all(
+            t.data_ptr() % 16 == 0 for t in (x, w_gate, w_up, w_down)):
+        return x, w_gate, w_up, w_down
+    D8, F8 = -(-D // 8) * 8, -(-F // 8) * 8
+
+    def pad(t, rows, cols):
+        out = t.new_zeros(rows, cols)
+        out[:t.shape[0], :t.shape[1]] = t
+        return out
+
+    return (pad(x, T, D8), pad(w_gate, D8, F8), pad(w_up, D8, F8),
+            pad(w_down, F8, D8))
 
 
 @dtensor_local([("batch", None), (None, "model"), (None, "model"),
@@ -235,12 +297,15 @@ def fused_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                          f"{lib.fused_mlp_max_t()} rows")
     index = x.device.index if x.device.index is not None \
         else torch.cuda.current_device()
-    regime, tile, n_split, per, n_ws = _plan(index, T, D, F, x.dtype)
+    if choose_regime(T, D, x.dtype == torch.bfloat16)[0] == "wgmma":
+        x, w_gate, w_up, w_down = pad_for_tma(x, w_gate, w_up, w_down)
+    Dk, Fk = x.shape[1], w_gate.shape[1]
+    regime, tile, n_split, per, n_ws = _plan(index, T, Dk, Fk, x.dtype)
     # per-split fp32 partials, summed in a fixed order by the kernel
     ws = torch.empty(n_ws, dtype=torch.float32, device=x.device)
-    out = torch.empty((T, D), dtype=x.dtype, device=x.device)
+    out = torch.empty((T, Dk), dtype=x.dtype, device=x.device)
     args = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-            w_down.data_ptr(), ws.data_ptr(), out.data_ptr(), T, D, F,
+            w_down.data_ptr(), ws.data_ptr(), out.data_ptr(), T, Dk, Fk,
             _DTYPES[x.dtype], regime, tile, n_split, per,
             torch.cuda.current_stream(index).cuda_stream)
     if index == torch.cuda.current_device():
@@ -252,7 +317,7 @@ def fused_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         raise RuntimeError("fused_mlp launch failed: "
                            + lib.fused_mlp_error_string(err).decode())
     fused_mlp.launches += 1
-    return out
+    return out if Dk == D else out[:, :D].contiguous()
 
 
 fused_mlp.launches = 0

@@ -13,12 +13,15 @@ import torch
 
 from repro.kernels import ref
 from repro.kernels.fused_mlp import fused_mlp as jax_fused_mlp
-from repro_torch.kernels.fused_mlp import (BF, CLUSTER, CLUSTER_DC_TILES,
+from repro_torch.kernels.fused_mlp import (BF, CLUSTER, CLUSTER_BT,
+                                           CLUSTER_DC_TILES,
                                            CLUSTER_START_CHUNKS,
                                            PREFILL_MIN_T, ROWS_MIN_COLS,
-                                           choose_regime, cluster_dc,
-                                           fused_mlp, fused_mlp_ref,
-                                           mlp_block, rows_splits, split_f)
+                                           WGMMA_MAX_DC, choose_regime,
+                                           cluster_dc, fused_mlp,
+                                           fused_mlp_ref, mlp_block,
+                                           pad_for_tma, rows_splits, split_f,
+                                           wgmma_dc)
 
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -66,6 +69,8 @@ def _close(out, exp, dtype):
     (63, 200, 300, 63, 100),    # ragged D for the cluster's D-slices
     (64, 64, 128, 64, 64),
     (65, 72, 192, 65, 64),
+    # D > 2560, wider than the mma.sync cluster regime's tiles
+    (8, 2600, 64, 8, 64),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fused_mlp_matches_pallas_and_oracle(T, D, F, bt, bf, dtype):
@@ -101,16 +106,30 @@ def test_fused_mlp_long_t_matches_oracle():
 @pytest.mark.parametrize("T,D,bf16,regime,tile", [
     (4, 2048, True, "rows", 0),               # decode, qwen2.5-3b
     (PREFILL_MIN_T - 1, 2048, True, "rows", 0),
-    (PREFILL_MIN_T, 2048, True, "cluster", 256),
-    (8192, 2560, True, "cluster", 320),       # gemma3-4b prefill
+    (PREFILL_MIN_T, 2048, True, "cluster", 256),   # one row tile
+    (CLUSTER_BT, 2048, True, "cluster", 256),
+    (CLUSTER_BT + 1, 2048, True, "wgmma", 256),    # two row tiles
+    (8192, 2560, True, "wgmma", 320),         # gemma3-4b prefill
     (8192, 2560, False, "rows", 0),           # float32: CUDA cores
-    (256, 200, True, "cluster", 64),          # 25 columns a CTA -> 64
-    (256, 8 * 320 + 8, True, "rows", 0),      # D-slice wider than a tile
+    (256, 200, True, "wgmma", 64),            # 25 columns a CTA -> 64
+    (256, 8 * 320 + 8, True, "wgmma", 384),   # past the mma.sync tiles
+    (CLUSTER_BT, 8 * 320 + 8, True, "wgmma", 384),
     (4, 5120, True, "rows", 0),               # decode, D = 5120
-    (512, 5120, True, "rows", 0),             # qwen1.5-32b prefill
+    (512, 5120, True, "wgmma", 640),          # qwen1.5-32b prefill
 ])
 def test_choose_regime(T, D, bf16, regime, tile):
     assert choose_regime(T, D, bf16) == (regime, tile)
+
+
+@pytest.mark.parametrize("T,D,bf16", [(512, 5128, True),
+                                      (PREFILL_MIN_T, 8192, True)])
+def test_choose_regime_refuses_d_wider_than_the_wgmma_slices(T, D, bf16):
+    """A bf16 prefill that no 8-CTA cluster of 640-column slices holds
+    raises: it never falls back to the rows regime."""
+    with pytest.raises(ValueError, match="wgmma"):
+        choose_regime(T, D, bf16)
+    assert choose_regime(4, D, bf16) == ("rows", 0)
+    assert choose_regime(T, D, False) == ("rows", 0)
 
 
 @pytest.mark.parametrize("D,dc", [(8, 8), (200, 32), (2048, 256),
@@ -119,12 +138,56 @@ def test_cluster_slices_cover_d_on_16_byte_boundaries(D, dc):
     assert cluster_dc(D) == dc
     assert dc % 8 == 0 and CLUSTER * dc >= D > CLUSTER * (dc - 8)
     fits = [t for t in CLUSTER_DC_TILES if t >= dc]
-    assert choose_regime(256, D, True)[1] == (fits[0] if fits else 0)
+    want = ("cluster", fits[0]) if fits else ("wgmma", wgmma_dc(D))
+    assert choose_regime(CLUSTER_BT, D, True) == want
+
+
+@pytest.mark.parametrize("D,dc", [(8, 64), (200, 64), (1000, 128),
+                                  (2048, 256), (2560, 320), (2561, 384),
+                                  (2568, 384), (4096, 512), (5120, 640),
+                                  (5128, 704)])
+def test_wgmma_slices_cover_d_on_16_byte_boundaries(D, dc):
+    """Each CTA's slice of the wgmma regime starts on a 64-column
+    (128-byte) boundary, the slices cover D, and none is wider than it
+    must be; a slice wider than WGMMA_MAX_DC is refused."""
+    assert wgmma_dc(D) == dc
+    assert dc % 64 == 0 and dc * 2 % 16 == 0
+    assert CLUSTER * dc >= D > CLUSTER * (dc - 64)
+    starts = [c * dc for c in range(CLUSTER)]
+    assert all(s * 2 % 16 == 0 for s in starts)
+    if dc <= WGMMA_MAX_DC:
+        assert choose_regime(256, D, True) == ("wgmma", dc)
+    else:
+        with pytest.raises(ValueError):
+            choose_regime(256, D, True)
+
+
+@pytest.mark.parametrize("D,F", [(200, 300), (203, 77), (2600, 300),
+                                 (2048, 64)])
+def test_pad_for_tma_adds_only_zeros(D, F):
+    """The wgmma regime's TMA rows need 16-byte pitches: D and F padded to
+    multiples of 8 with zeros, which change no sum; widths already
+    aligned are passed through as they are."""
+    x, wg, wu, wd = (torch.from_numpy(a).to(torch.bfloat16)
+                     for a in _inputs(6, D, F, seed=4))
+    px, pg, pu, pd = pad_for_tma(x, wg, wu, wd)
+    D8, F8 = -(-D // 8) * 8, -(-F // 8) * 8
+    assert (px.shape, pg.shape, pu.shape, pd.shape) == (
+        (6, D8), (D8, F8), (D8, F8), (F8, D8))
+    if (D8, F8) == (D, F):
+        assert px is x and pg is wg and pu is wu and pd is wd
+    assert torch.equal(px[:, :D], x) and not px[:, D:].any()
+    assert torch.equal(pd[:F, :D], wd) and not pd[F:].any()
+    assert not pg[D:].any() and not pu[:, F:].any()
+    torch.testing.assert_close(fused_mlp_ref(px, pg, pu, pd)[:, :D],
+                               fused_mlp_ref(x, wg, wu, wd), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("tiles,F,target", [
     (1, 11008, 1056), (1, 10240, 15), (4, 11008, 15), (128, 10240, 15),
-    (1024, 10240, 1056), (32, 11008, 1056), (16, 300, 1056), (1, 64, 7)])
+    (1024, 10240, 1056), (32, 11008, 1056), (16, 300, 1056), (1, 64, 7),
+    # D = 5120 prefill, T = 512: 8 row tiles
+    (8, 27392, 16), (8, 17920, 16), (8, 27392, 15), (8, 17920, 14)])
 def test_split_f_covers_every_chunk_once(tiles, F, target):
     n_split, per = split_f(tiles, F, target)
     chunks = -(-F // BF)
@@ -148,6 +211,11 @@ def test_split_f_covers_every_chunk_once(tiles, F, target):
     (128, 10240, 15, 1),       # gemma3-4b forward: 9 waves of whole sweeps
     (4, 11008, 15, 7),         # T = 256: 28 clusters in 2 waves, not 16 in 2
     (1, 10240, 15, 15),        # T = 64: one wave
+    # qwen1.5-32b's and phi3-medium-14b's (1, 512) prefill: 8 row tiles;
+    # two splits fill 16 slots in one wave; 15 slots take 13 splits (104
+    # clusters, 6.9 waves of 33 chunks), 14 slots 7 (4 whole waves)
+    (8, 27392, 16, 2), (8, 17920, 16, 2), (8, 27392, 15, 13),
+    (8, 17920, 14, 7),
 ])
 def test_split_f_fills_the_waves(tiles, F, slots, n_split):
     assert split_f(tiles, F, slots)[0] == n_split

@@ -39,17 +39,22 @@ def _inputs(T, D, F, dtype, seed=0):
 @pytest.mark.parametrize("T,D,F", [
     (1, 64, 128), (4, 2048, 11008), (5, 200, 300), (17, 96, 33),
     (256, 512, 1024),
-    # the regime boundary (bf16 cluster from 64 rows) and tile edges
+    # the regime boundaries (bf16 mma.sync cluster up to 64 rows, wgmma
+    # from 65) and tile edges
     (16, 96, 128), (17, 128, 192), (63, 200, 300), (64, 128, 256),
     (65, 136, 200), (8192, 64, 128),
     # gemma3-4b width, prefill
     (256, 2560, 10240),
-    # ragged D-slices: 1000 / 8 = 125 columns a CTA (16-byte loads), and
-    # 203 (element loads), neither a multiple of 8 x 16
+    # ragged D in the wgmma regime: 1000 (slices of 128 columns, the last
+    # partly past D), and 203 with F = 77 (zero-padded to 208 and 80)
     (96, 1000, 256), (70, 203, 77),
-    # D = 5120, wider than any cluster tile: phi3-medium-14b's and
-    # qwen1.5-32b's decode, and qwen1.5-32b's prefill in the rows regime
-    (4, 5120, 17920), (4, 5120, 27392), (512, 5120, 27392)])
+    # D = 5120: phi3-medium-14b's and qwen1.5-32b's decode (rows regime)
+    # and (1, 512) prefill (wgmma regime, 640-column D-slices)
+    (4, 5120, 17920), (4, 5120, 27392), (512, 5120, 27392),
+    (512, 5120, 17920),
+    # D > 2560 ragged: T, D and F no multiples of the tiles, F no multiple
+    # of 8 (the wrapper pads it for TMA)
+    (70, 2600, 300)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_mlp_kernel_matches_plain(T, D, F, dtype):
     _need_card()
@@ -65,7 +70,8 @@ def test_fused_mlp_kernel_matches_plain(T, D, F, dtype):
 
 
 @pytest.mark.parametrize("T,D,F", [(4, 2048, 11008), (256, 2560, 10240),
-                                   (65, 200, 300)])
+                                   (65, 200, 300), (512, 5120, 17920),
+                                   (70, 2600, 300), (512, 5120, 27392)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_mlp_is_bitwise_repeatable(T, D, F, dtype):
     """No atomics: every regime sums in a fixed order, so two calls on the
@@ -78,14 +84,17 @@ def test_fused_mlp_is_bitwise_repeatable(T, D, F, dtype):
     assert torch.equal(first, second)
 
 
-def test_fused_mlp_prefill_regime_counts_one_launch():
-    """The bf16 prefill runs the cluster kernel and, with F split over
-    clusters, the ordered reduction: every CUDA function the call runs is
-    named ``fused_mlp_kernel*``, and the call counts one launch."""
+@pytest.mark.parametrize("T,D,F,regime", [(64, 2048, 11008, "cluster"),
+                                          (512, 2560, 10240, "wgmma"),
+                                          (512, 5120, 27392, "wgmma")])
+def test_fused_mlp_prefill_regime_counts_one_launch(T, D, F, regime):
+    """The bf16 prefill runs its regime's cluster kernel and, with F split
+    over clusters, the ordered reduction: every CUDA function the call
+    runs is named ``fused_mlp_kernel*``, and the call counts one launch."""
     from torch.profiler import ProfilerActivity, profile
     _need_card()
-    args = _inputs(512, 2560, 10240, torch.bfloat16)
-    assert choose_regime(512, 2560, True)[0] == "cluster"
+    args = _inputs(T, D, F, torch.bfloat16)
+    assert choose_regime(T, D, True)[0] == regime
     fused_mlp(*args)
     torch.cuda.synchronize()
     before = fused_mlp.launches
@@ -96,7 +105,7 @@ def test_fused_mlp_prefill_regime_counts_one_launch():
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert names and all("fused_mlp_kernel" in n for n in names), names
-    assert any("fused_mlp_kernel_cluster" in n for n in names), names
+    assert any(f"fused_mlp_kernel_{regime}" in n for n in names), names
 
 
 def test_mlp_block_and_input_checks():
