@@ -20,8 +20,10 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    attention, the kernel's device time by the profiler; ``fused_mlp``
    at qwen2.5-3b and gemma3-4b widths (decode, prefill, ragged T, ragged
    D and F), at D = 5120 (phi3-medium-14b's and qwen1.5-32b's decode in
-   the rows regime, their (1, 512) prefill in the ``wgmma`` regime) and
-   at qwen2-vl-2b's width (decode, and its (2, 1024) forward's prefill),
+   the rows regime, their (1, 512) prefill in the ``wgmma`` regime), at
+   qwen2-vl-2b's width (decode, and its (2, 1024) forward's prefill) and
+   past D = 5120 ((512, 5128, 13824) and (512, 8192, 28672), 16-CTA
+   clusters of the ``wgmma`` regime),
    each row with its regime, device ms, bound and cuBLAS x 3 ms, and flash attention at the model paths' shapes (whisper's
    non-causal encoder over 1500 frames, its cross-attention in forward
    and in decode, one query row, among them), in bf16
@@ -46,12 +48,18 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    qwen2.5-3b, rwkv6-1.6b, recurrentgemma-2b, gemma3-4b,
    phi3-medium-14b, qwen1.5-32b, granite-moe-1b-a400m,
    moonshot-v1-16b-a3b and qwen2-vl-2b (text only) each answer 6 requests
-   through ``ServeEngine`` with the kernels on; the launch counts of each
-   run must show every
-   kernel of its path once per layer that runs it and tick (fused_mlp,
-   wkv6, rglru_chunked; none for the MoE archs, whose experts are plain
-   products) and no other kernel (flash attention runs only without a
-   cache, so never in decode); one decode step is then compared with
+   through ``ServeEngine`` with the kernels on, eagerly and with each
+   tick one replay of a captured CUDA graph (the main path), the two
+   runs' tokens and last logits the same bits, ms/tick, tokens/s and
+   peak GB for both; the wrappers' counts of the eager run must show
+   every kernel of its path once per layer that runs it and tick
+   (fused_mlp, wkv6, rglru_chunked; none for the MoE archs, whose
+   experts are plain products) and no other kernel (flash attention runs
+   only without a cache, so never in decode), those of the graph run
+   once per layer in its warm-up step and capture, and a profiled graph
+   run one ``cudaGraphLaunch`` a tick and every kernel once per layer
+   and tick inside the replays; both engines' steady ticks are profiled
+   for device time and busy share; one decode step is then compared with
    the plain path from the same cache, and taken again from another
    copy of the cache for the same bits; the two recurrent archs also run
    ``forward`` on a (2, 512) prompt, each layer's output with the
@@ -124,14 +132,15 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    once; its pricing calls counted, and ``price_rows`` launched once for
    each with device rows), the second reads the store (no planner
    invocation, no pricing call, no launch); the three runs' tokens are
-   the same bits, and each launches ``fused_mlp`` once a layer and tick;
+   the same bits, and each engine replays its CUDA graph once a tick;
 10. tenants (``tenants``): ``repro_torch.launch.serve --use-kernels
    --tenants qwen2.5-3b:2:1,rwkv6-1.6b:1 --plan-store`` at full width:
    the multi-tenant plan of the torch engine on ``cuda`` against the
    numpy engine's, reloaded warm from the store with no planner
    invocation; then the ``AdmissionScheduler`` in each of its three
    modes on fresh engines of the same weights, timed, each run's
-   ``fused_mlp`` and ``wkv6`` launches checked, and every request's
+   ``fused_mlp`` and ``wkv6`` captures and graph replays checked, and
+   every request's
    tokens, in the launcher's run and in every mode, bit-equal to the
    same request served alone on an engine of its tenant;
 11. train (``train``): ``repro_torch.launch.train --arch qwen2.5-3b
@@ -215,8 +224,9 @@ CLEAN_CARD_BYTES = 1e9
 #: 256-token prompt, a ragged T), gemma3-4b width (4 slots, and the
 #: (1, 8192) forward's prefill), D = 5120: phi3-medium-14b's and
 #: qwen1.5-32b's 4 slots (the rows regime) and their (1, 512) forwards
-#: (the wgmma regime, 640-column D-slices), and qwen2-vl-2b's 4 slots and
-#: its (2, 256 + 768) forward
+#: (the wgmma regime, 640-column D-slices), qwen2-vl-2b's 4 slots and
+#: its (2, 256 + 768) forward, and two prefills wider than any arch of
+#: the zoo (D = 5128 and 8192: 16-CTA clusters of the wgmma regime)
 FUSED_MLP_SHAPES = [("decode", 4, 2048, 11008), ("prefill", 256, 2048, 11008),
                     ("ragged", 5, 2048, 11008),
                     ("decode-gemma", 4, 2560, 10240),
@@ -226,12 +236,16 @@ FUSED_MLP_SHAPES = [("decode", 4, 2048, 11008), ("prefill", 256, 2048, 11008),
                     ("prefill-qwen32", 512, 5120, 27392),
                     ("prefill-phi3", 512, 5120, 17920),
                     ("decode-vlm", 4, 1536, 8960),
-                    ("prefill-vlm", 2048, 1536, 8960)]
+                    ("prefill-vlm", 2048, 1536, 8960),
+                    ("prefill-d5128", 512, 5128, 13824),
+                    ("prefill-d8192", 512, 8192, 28672)]
 #: prefill rows that float32 checks without timing
 FUSED_MLP_UNTIMED = {("prefill-gemma", "float32"),
                      ("prefill-qwen32", "float32"),
                      ("prefill-phi3", "float32"),
-                     ("prefill-vlm", "float32")}
+                     ("prefill-vlm", "float32"),
+                     ("prefill-d5128", "float32"),
+                     ("prefill-d8192", "float32")}
 
 #: the simulator scans one row of T <= 512 bursts (DEFAULT_MAX_BURSTS);
 #: a row past one tile of 1024 steps carries between tiles; (label, B, T)
@@ -408,7 +422,7 @@ def check_fused_mlp(label: str, T: int, D: int, F: int, dtype_name: str,
     bitwise equal to the first, and (``timed``) its times."""
     import torch
     from repro_torch.kernels.fused_mlp import (choose_regime, fused_mlp,
-                                               fused_mlp_ref)
+                                               fused_mlp_ref, wgmma_ctas)
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(T * 7 + D + F)
@@ -435,6 +449,8 @@ def check_fused_mlp(label: str, T: int, D: int, F: int, dtype_name: str,
     ok = bool((diff <= tol + tol * exp.float().abs()).all())
     row = {"shape": label, "T": T, "D": D, "F": F, "dtype": dtype_name,
            "regime": choose_regime(T, D, dtype == torch.bfloat16)[0],
+           "ctas": (wgmma_ctas(D) if choose_regime(
+               T, D, dtype == torch.bfloat16)[0] == "wgmma" else None),
            "max_abs_err": float(diff.max()), "tol": tol, "ok": ok,
            "repeatable": True}
     if timed:
@@ -466,16 +482,18 @@ def check_fused_mlp(label: str, T: int, D: int, F: int, dtype_name: str,
 
 def fused_mlp_occupancy():
     """How many of each ``fused_mlp`` kernel fit the card at once: the
-    ``wgmma`` regime's 8-CTA clusters, the ``cluster`` regime's per D-slice
-    tile, the rows regime's blocks per SM at D = 2560 and 5120 (by the
-    CUDA occupancy calculator), and the SM count."""
+    ``wgmma`` regime's 8- and 16-CTA clusters, the ``cluster`` regime's
+    per D-slice tile, the rows regime's blocks per SM at D = 2560 and
+    5120 (by the CUDA occupancy calculator), and the SM count."""
     import torch
     from repro_torch.kernels import fused_mlp as fm
     lib = fm._library()
     row = {"shape": "occupancy",
            "sms": torch.cuda.get_device_properties(0).multi_processor_count,
-           "clusters": {"wgmma": lib.fused_mlp_max_active_clusters(0), **{
-               f"cluster {tile}": lib.fused_mlp_max_active_clusters(tile)
+           "clusters": {**{
+               f"wgmma {ctas}": lib.fused_mlp_max_active_clusters(1, ctas)
+               for ctas in fm.WGMMA_CLUSTERS}, **{
+               f"cluster {tile}": lib.fused_mlp_max_active_clusters(2, tile)
                for tile in fm.CLUSTER_DC_TILES}},
            "rows_blocks_per_sm": {
                f"{name} D={d}": lib.fused_mlp_rows_blocks_per_sm(code, d)
@@ -1519,65 +1537,210 @@ def _rel_logit_diff(lk, lp, cfg, chunk: int = 1024, keep=None):
     return diff / scale, agree / (lk.shape[0] * lk.shape[1])
 
 
-def serve_arch(arch: str, params, cfg):
-    """``arch`` at full width answers 6 requests through ``ServeEngine``
-    with the kernels on; every kernel of the path must launch once per
-    layer that runs it and tick, and no other; then one decode step is
-    compared with the plain path from the same cache: in bf16 for the
-    dense, moe and vlm archs, through ``_float32_twin`` (the cache cast to
-    float32) for the recurrent ones.  The kernel path's step is taken a
-    second time from another copy of the cache and must give the same
-    bits.  A vlm serves text only, as the reference's decode."""
+#: the profiler has now and then dropped a kernel record from a window
+#: (``device_us``): a launch count read from its events may fall short of
+#: the launches by this share, never exceed them
+PROFILE_DROP_SHARE = 0.02
+
+
+def _kernel_events(prof) -> dict:
+    """Each model kernel's launches in a profiled window, from its device
+    events (``fused_mlp``'s reduction of F splits, a second CUDA function
+    of one launch, not counted), and the host's ``cudaGraphLaunch``
+    calls."""
     import torch
-    from repro_torch.models import decode_step
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {name: sum(fn in n and "reduce" not in n for n in names)
+           for name, fn in MODEL_KERNELS.items()}
+    out["graph_launches"] = sum(e.name.startswith("cudaGraphLaunch")
+                                for e in prof.events()
+                                if e.device_type
+                                == torch.autograd.DeviceType.CPU)
+    return out
+
+
+def _check_events(label: str, seen: dict, want: dict) -> None:
+    """Profiler counts against the launches they must show, allowing
+    ``PROFILE_DROP_SHARE`` of dropped records and none extra."""
+    for name, n in want.items():
+        check(n * (1 - PROFILE_DROP_SHARE) <= seen[name] <= n,
+              f"{label}: the profiler saw {seen[name]} {name} launches, "
+              f"expected {n}")
+
+
+def _wrapper_launches(engine, per_tick: dict) -> dict:
+    """What the kernels' wrappers count in an engine's run: once per
+    layer and tick eagerly; with the CUDA graph, once per layer in each
+    warm-up step and in the capture, whatever the ticks (replays launch
+    no wrapper)."""
+    from repro_torch.runtime.serve_loop import GRAPH_WARMUP_STEPS
+    if engine.cuda_graph:
+        steps = GRAPH_WARMUP_STEPS + 1 if engine.ticks else 0
+    else:
+        steps = engine.ticks
+    return {name: n * steps for name, n in per_tick.items()}
+
+
+def _check_engine_launches(label: str, engines, launches: dict) -> None:
+    """The wrappers' counts of a run of ``engines`` (``_wrapper_launches``
+    summed), and each graph engine's one replay a tick."""
+    for e in engines:
+        check(not e.cuda_graph or e.graph_replays == e.ticks,
+              f"{label}: {e.graph_replays} graph replays in {e.ticks} "
+              "ticks")
+    for name in launches:
+        want = sum(_wrapper_launches(e, _per_call(e.cfg))[name]
+                   for e in engines)
+        check(launches[name] == want,
+              f"{label}: {name} launched {launches[name]} times, "
+              f"expected {want}")
+
+
+def _serve_run(params, cfg, cuda_graph: bool):
+    """A fresh engine answers the 6 requests; (engine, finished requests,
+    each tick's seconds on the host clock: a tick ends in its sync)."""
+    import torch
     from repro_torch.runtime.serve_loop import Request, ServeEngine
-
-    n_params = sum(t.numel() for t in _leaves(params))
-    # warm-up engine (cuBLAS handles, the kernel libraries) before the run
-    warm = ServeEngine(params, cfg, batch_slots=4, max_len=128,
-                       device="cuda")
-    warm.submit(Request(rid=-1, prompt=[1, 2], max_new_tokens=2))
-    warm.run()
-    del warm
-
     engine = ServeEngine(params, cfg, batch_slots=4, max_len=128,
-                         device="cuda")
+                         device="cuda", cuda_graph=cuda_graph)
     for i in range(6):
         engine.submit(Request(rid=i, prompt=[2 + i, 7, 3 * i + 1],
                               max_new_tokens=12))
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _zero_counts()
-    t0 = time.perf_counter()
-    done = engine.run()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = _counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    done, tick_s = [], []
+    while engine.queue or any(r is not None for r in engine.active):
+        t0 = time.perf_counter()
+        done += engine.step()
+        tick_s.append(time.perf_counter() - t0)
+    return engine, done, tick_s
 
-    check(len(done) == 6 and not engine.truncated,
-          f"{arch}: served {len(done)} of 6 requests")
+
+def _serve_record(arch, cfg, engine, done, tick_s, launches, peak_gb):
+    check(len(done) == 6 and all(len(r.output) == 12 for r in done),
+          f"{arch}: served {len(done)} of 6 requests "
+          f"({[len(r.output) for r in done]} tokens)")
     for r in done:
-        check(len(r.output) == 12, f"{arch} rid {r.rid}: {len(r.output)} "
-                                   "tokens")
         check(all(0 <= t < cfg.vocab for t in r.output),
               f"{arch} rid {r.rid}: token out of vocab {r.output}")
-    for name, per_tick in _per_call(cfg).items():
-        want = per_tick * engine.ticks
-        check(launches[name] == want,
-              f"{arch}: {name} launched {launches[name]} times, expected "
-              f"{per_tick} x {engine.ticks} ticks = {want}")
     tokens = sum(len(r.output) for r in done)
-    serve = {"arch": arch, "params_b": n_params / 1e9,
-             "requests": len(done), "tokens": tokens, "ticks": engine.ticks,
-             "seconds": dt, "tokens_per_s": tokens / dt,
-             "ms_per_tick": dt / engine.ticks * 1e3,
-             "peak_memory_gb": peak_gb, "launches": launches}
+    steady = tick_s[1:]
+    return {"cuda_graph": engine.cuda_graph, "requests": len(done),
+            "tokens": tokens, "ticks": engine.ticks,
+            "seconds": sum(tick_s), "tokens_per_s": tokens / sum(tick_s),
+            "first_tick_ms": tick_s[0] * 1e3,
+            "ms_per_tick": sum(steady) / len(steady) * 1e3,
+            "steady_tokens_per_s": tokens * len(steady) / len(tick_s)
+            / sum(steady),
+            "peak_memory_gb": peak_gb, "launches": launches,
+            "graph_replays": engine.graph_replays}
+
+
+def serve_arch(arch: str, params, cfg):
+    """``arch`` at full width answers 6 requests through ``ServeEngine``
+    with the kernels on, twice: eagerly (``cuda_graph=False``) and with
+    each tick one replay of a captured CUDA graph, the main path.  The
+    two runs' tokens and last logits must be the same bits.  The
+    wrappers count every kernel of the path once per layer that runs it
+    and tick eagerly, and once per layer in the graph's warm-up and
+    capture; a third run of the graph engine under the profiler must show
+    one ``cudaGraphLaunch`` a tick and, inside the replays, every kernel
+    once per layer and tick.  ms/tick is the mean of the ticks after the
+    first (the graph engine captures in its first).  Then one decode step
+    is compared with the plain path from the same cache: in bf16 for the
+    dense, moe and vlm archs, through ``_float32_twin`` (the cache cast to
+    float32) for the recurrent ones.  The kernel path's step is taken a
+    second time from another copy of the cache and must give the same
+    bits.  A vlm serves text only, as the reference's decode."""
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step
+    from repro_torch.runtime.serve_loop import (GRAPH_WARMUP_STEPS, Request,
+                                                ServeEngine)
+
+    n_params = sum(t.numel() for t in _leaves(params))
+    parts = {}                           # host seconds of each part
+    t_part = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[name] = now - t_part
+        t_part = now
+
+    # warm-up engine (cuBLAS handles, the kernel libraries) before the run
+    warm = ServeEngine(params, cfg, batch_slots=4, max_len=128,
+                       device="cuda", cuda_graph=False)
+    warm.submit(Request(rid=-1, prompt=[1, 2], max_new_tokens=2))
+    warm.run()
+    del warm
+
+    per_tick = _per_call(cfg)
+    runs = {}
+    for label, graph in (("eager", False), ("graph", True)):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        engine, done, tick_s = _serve_run(params, cfg, graph)
+        torch.cuda.synchronize()
+        launches = _counts()
+        _check_engine_launches(f"{arch} {label}", [engine], launches)
+        runs[label] = (engine, done, _serve_record(
+            arch, cfg, engine, done, tick_s, launches,
+            torch.cuda.max_memory_allocated() / 1e9))
+        lap(f"{label}_run")
+    (eager, e_done, e_rec), (graph, g_done, serve) = (runs.pop("eager"),
+                                                      runs.pop("graph"))
+    e_tokens = {r.rid: r.output for r in e_done}
+    check({r.rid: r.output for r in g_done} == e_tokens,
+          f"{arch}: the graph engine's tokens differ from the eager "
+          "engine's")
+    # the last tick's logits: recorded; a difference is stated, not fatal
+    # (the tokens above are the check)
+    logits_equal = bool(torch.equal(graph.logits, eager.logits))
+    logits_diff = float((graph.logits.float() - eager.logits.float()
+                         ).abs().max())
+    del graph, g_done
+
+    # the graph engine once more under the profiler: the replays' kernels
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        p_engine, p_done, _ = _serve_run(params, cfg, True)
+        torch.cuda.synchronize()
+    seen = _kernel_events(prof)
+    del prof
+    check({r.rid: r.output for r in p_done} == e_tokens,
+          f"{arch}: the profiled graph run's tokens differ")
+    ticks = p_engine.ticks
+    want = {name: n * (ticks + GRAPH_WARMUP_STEPS)
+            for name, n in per_tick.items()}
+    want["graph_launches"] = ticks
+    _check_events(f"{arch} graph run", seen, want)
+    del p_engine, p_done
+    lap("profiled_graph_run")
+
+    serve.update(arch=arch, params_b=n_params / 1e9,
+                 replayed_launches=seen, eager=e_rec,
+                 tokens_bit_equal=True, logits_bit_equal=logits_equal,
+                 logits_max_abs_diff=logits_diff)
     print("serve " + json.dumps(serve))
-    for r in sorted(done, key=lambda r: r.rid)[:2]:
+    print(f"{arch} serve: graph {serve['ms_per_tick']:.2f} ms/tick "
+          f"({serve['steady_tokens_per_s']:.1f} tok/s steady, first tick "
+          f"{serve['first_tick_ms']:.1f} ms, peak "
+          f"{serve['peak_memory_gb']:.2f} GB), eager "
+          f"{e_rec['ms_per_tick']:.2f} ms/tick "
+          f"({e_rec['steady_tokens_per_s']:.1f} tok/s, peak "
+          f"{e_rec['peak_memory_gb']:.2f} GB); tokens bit-equal, last "
+          f"logits bit-equal: {logits_equal} (max |diff| {logits_diff:.3g})")
+    for r in sorted(e_done, key=lambda r: r.rid)[:2]:
         print(f"  rid={r.rid} out={r.output}")
 
     # one decode step from the same cache state, kernel path vs plain
+    engine = eager
     feed = torch.tensor([[3 + s] for s in range(engine.B)], device="cuda")
     index = torch.from_numpy(engine.pos.copy()).to("cuda")
     p_cmp, c_cmp = ((params, cfg) if cfg.arch_kind in ("dense", "moe",
@@ -1592,10 +1755,10 @@ def serve_arch(arch: str, params, cfg):
         again, _ = decode_step(p_cmp, c_cmp, feed,
                                _copy(engine.cache, c_cmp.dtype), index)
     repeatable = bool(torch.equal(again, logits[True]))
-    del again
+    del again, engine, eager
     check(repeatable, f"{arch}: two decode steps from the same cache gave "
                       "different bits")
-    check(logits[True].shape == (engine.B, 1, cfg.padded_vocab),
+    check(logits[True].shape == (4, 1, cfg.padded_vocab),
           f"{arch}: kernel-path logits {tuple(logits[True].shape)}")
     rel, agree = _rel_logit_diff(logits[True], logits[False], cfg)
     dt_name = str(c_cmp.dtype).removeprefix("torch.")
@@ -1606,36 +1769,58 @@ def serve_arch(arch: str, params, cfg):
           f"|diff| / max |logit| = {rel:.3g} (tol {LOGIT_TOL}), argmax "
           f"agreement {agree:.2f}, a second step bit-equal: {repeatable}")
     check(rel <= LOGIT_TOL, f"{arch}: kernel path logits off by {rel:.3g}")
-    del p_cmp
-    serve["profile"] = profile_ticks(params, cfg, serve["ms_per_tick"])
+    del p_cmp, logits
+    gc.collect()
+    lap("decode_step_vs_plain")
+    serve["profile"] = profile_ticks(params, cfg, serve["ms_per_tick"],
+                                     cuda_graph=True)
+    lap("profile_graph")
+    serve["eager"]["profile"] = profile_ticks(
+        params, cfg, e_rec["ms_per_tick"], cuda_graph=False)
+    lap("profile_eager")
+    serve["part_seconds"] = parts
+    print(f"{arch} serve parts (s): " + json.dumps(parts))
     return serve
 
 
-def profile_ticks(params, cfg, ms_per_tick: float, ticks: int = 8):
+def profile_ticks(params, cfg, ms_per_tick: float, cuda_graph: bool,
+                  ticks: int = 8):
     """Device time of a steady decode tick, by ``torch.profiler``: the
-    sum of kernel durations per tick, each hand-written kernel's part,
-    and the device's busy share of the unprofiled tick time."""
+    sum of kernel durations per tick, each hand-written kernel's part and
+    launches, the host's ``cudaGraphLaunch`` calls per tick (one with the
+    graph, none eagerly), and the device's busy share of the unprofiled
+    tick time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.runtime.serve_loop import Request, ServeEngine
     engine = ServeEngine(params, cfg, batch_slots=4, max_len=128,
-                         device="cuda")
+                         device="cuda", cuda_graph=cuda_graph)
     for i in range(4):
         engine.submit(Request(rid=i, prompt=[5 + i], max_new_tokens=64))
     for _ in range(4):
         engine.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the eager window traces device activity only: its thousands of host
+    # ops a tick took the profiler 6-38 s an arch to parse, and nothing
+    # here reads them (an eager tick launches no graph)
+    with profile(activities=[ProfilerActivity.CUDA] if not cuda_graph else
+                 [ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(ticks):
             engine.step()
         torch.cuda.synchronize()
     out = _device_time(prof, ticks, "_per_tick")
     if out is None:
         return None
-    out.update(ticks=ticks, busy_share=out["device_ms_per_tick"]
-               / ms_per_tick)
+    seen = _kernel_events(prof)
+    want = {name: n * ticks for name, n in _per_call(cfg).items()}
+    want["graph_launches"] = ticks if cuda_graph else 0
+    _check_events(f"{cfg.name} profile", seen, want)
+    out.update(ticks=ticks, cuda_graph=cuda_graph,
+               graph_launches_per_tick=seen["graph_launches"] / ticks,
+               launches_per_tick={name: seen[name] / ticks
+                                  for name in MODEL_KERNELS},
+               busy_share=out["device_ms_per_tick"] / ms_per_tick)
     print(f"profile {cfg.name} " + json.dumps(out))
     return out
 
@@ -1697,17 +1882,24 @@ def _rglru_float64(a, b, h0=None):
     return torch.stack(hs, dim=1).float(), h[:, None, :].float()
 
 
+def _wkv6_blocks_float64(r, k, v, log_w, u, s0=None):
+    """``_wkv6_float64`` in the plain form's signature: the log decays."""
+    return _wkv6_float64(r, k, v, log_w.double().exp(), u, s0)
+
+
 @contextlib.contextmanager
 def _recurrence_in_float64():
-    """The models' plain path with its recurrence in float64: a witness
-    difference that owes nothing to the kernels."""
+    """The models' plain path with its recurrence in float64, step by
+    step (the witnesses' recurrences): a witness difference that owes
+    nothing to the kernels."""
     from repro_torch.models import rglru, rwkv6
-    plain = rwkv6.wkv6_ref, rglru.rglru_ref
-    rwkv6.wkv6_ref, rglru.rglru_ref = _wkv6_float64, _rglru_float64
+    plain = rwkv6.wkv6_blocks, rglru.rglru_doubling
+    rwkv6.wkv6_blocks, rglru.rglru_doubling = (_wkv6_blocks_float64,
+                                               _rglru_float64)
     try:
         yield
     finally:
-        rwkv6.wkv6_ref, rglru.rglru_ref = plain
+        rwkv6.wkv6_blocks, rglru.rglru_doubling = plain
 
 
 def _picks(rel):
@@ -2761,8 +2953,8 @@ def phase_serve_planned():
     planner caches: the first run plans (``plan_source`` planner, the
     planner invoked), the second reads the store (``store``, no planner
     invocation, no pricing call, no launch); the three runs' tokens must
-    be the same bits, and each run launch ``fused_mlp`` once a layer and
-    tick."""
+    be the same bits, and each run's engine replay its CUDA graph once a
+    tick, ``fused_mlp`` captured once a layer (``_wrapper_launches``)."""
     from repro_torch.launch import serve as serve_cli
     argv = ["--arch", PLANNED_ARCH, "--use-kernels"]
     runs = {}
@@ -2787,12 +2979,8 @@ def phase_serve_planned():
             if engine.plan is not None:
                 runs[label]["planned_cycles_per_token"] = \
                     engine.stats()["planned_cycles_per_token"]
-            per_tick = _per_call(engine.cfg)
-            for name, n in per_tick.items():
-                check(launches[name] == n * engine.ticks,
-                      f"serve_planned {label}: {name} launched "
-                      f"{launches[name]} times, expected {n} x "
-                      f"{engine.ticks} ticks")
+            _check_engine_launches(f"serve_planned {label}", [engine],
+                                   launches)
             check(len(done) == 6 and tokens == 72,
                   f"serve_planned {label}: {len(done)} requests, {tokens} "
                   "tokens")
@@ -2833,9 +3021,10 @@ def phase_tenants():
     planner call; then the scheduler runs again in each of the three
     modes on fresh engines of the same weights, timed.  Every request's
     tokens, in the launcher's run and in every mode, must be the bits of
-    the same request served alone on an engine of its tenant; every run
-    must launch ``fused_mlp`` once a layer and tick of a qwen2.5-3b
-    engine and ``wkv6`` once a layer and tick of the rwkv6-1.6b one."""
+    the same request served alone on an engine of its tenant; in every run
+    each engine must replay its own CUDA graph once a tick, with
+    ``fused_mlp`` captured once a layer of the qwen2.5-3b engine and
+    ``wkv6`` once a layer of the rwkv6-1.6b one (``_wrapper_launches``)."""
     import torch
     from repro_torch.core import (MultiTenantRequest, Planner, PlanStore,
                                   mtplan_to_dict, resolve_multi_tenant)
@@ -2889,13 +3078,9 @@ def phase_tenants():
         tokens by request id and its record."""
         tokens = sum(len(r.output) for v in s.done.values() for r in v)
         engine_ticks = {n: l.engine.ticks for n, l in s.lanes.items()}
-        for name, kind in (("fused_mlp", "dense"), ("wkv6", "rwkv")):
-            want = sum(_per_call(l.engine.cfg)[name] * l.engine.ticks
-                       for l in s.lanes.values()
-                       if l.engine.cfg.arch_kind == kind)
-            check(launches[name] == want,
-                  f"tenants {label}: {name} launched {launches[name]} times,"
-                  f" expected {want}")
+        _check_engine_launches(f"tenants {label}",
+                               [l.engine for l in s.lanes.values()],
+                               launches)
         check(s.stats()["completed"] == 6 * len(s.lanes) and not s.truncated,
               f"tenants {label}: {s.stats()}")
         return ({r.rid: r.output for v in s.done.values() for r in v},
@@ -3708,6 +3893,7 @@ def _run_phases(smi, dryrun, t_start):
         "source": "src/repro_torch/kernels/csrc/fused_mlp.cu",
         "replaces": "src/repro/kernels/fused_mlp.py:48",
         "launches": serve["launches"]["fused_mlp"],
+        "replayed_launches": serve["replayed_launches"]["fused_mlp"],
         "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
         "device_ms": main_row["device_ms"],
         "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
@@ -3727,6 +3913,13 @@ def _run_phases(smi, dryrun, t_start):
             "T", "D", "F", "regime", "max_abs_err", "ms", "device_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for r in rows if r.get("D") == 5120 and r["dtype"] == "bfloat16"}
+    # fused_mlp past D = 5120 (16-CTA clusters of the wgmma regime): no
+    # arch of the zoo is that wide, so these rows have no model launches
+    kernels[0]["d_over_5120"] = {
+        r["shape"]: {k: r[k] for k in (
+            "T", "D", "F", "regime", "ctas", "max_abs_err", "ms",
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for r in rows if r.get("D", 0) > 5120 and r["dtype"] == "bfloat16"}
     kernels[0]["d5120_launches"] = {
         arch: {"serve": serves[arch]["launches"]["fused_mlp"],
                "forward": forwards[arch]["launches"]["fused_mlp"]}
@@ -3799,6 +3992,7 @@ def _run_phases(smi, dryrun, t_start):
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": ref, "launches": serves[arch]["launches"][name],
+            "replayed_launches": serves[arch]["replayed_launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

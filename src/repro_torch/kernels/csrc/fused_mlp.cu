@@ -16,14 +16,18 @@
 // no order, and nothing carries over between them.  Three regimes, chosen
 // by the wrapper (kernels/fused_mlp.py:choose_regime) from T, D and dtype;
 // both cluster regimes split a 64-row tile over D across a cluster of
-// kC = 8 CTAs on neighbouring SMs and pass partials and h through the
+// kC = 8 CTAs (16 in regime 1 at D > 5120) on neighbouring SMs and pass
+// partials and h through the
 // cluster's distributed shared memory, the on-chip network between the
 // producer and consumer SMs (partials and h never leave the cluster):
 //
 // 1. bf16 prefill past one row tile, or at D > 2560,
-//    fused_mlp_kernel_wgmma: warpgroup MMA fed by TMA.  CTA c owns the DC
-//    columns [c DC, (c + 1) DC) of x and of out, DC = D / 8 rounded up to
-//    a multiple of 64, up to kMaxDC = 640 (D <= 5120).  Its x slice is
+//    fused_mlp_kernel_wgmma<C>: warpgroup MMA fed by TMA.  CTA c of a
+//    cluster of C owns the DC columns [c DC, (c + 1) DC) of x and of out,
+//    DC = D / C rounded up to a multiple of 64, up to kMaxDC = 640: C = 8
+//    for D <= 5120, else C = 16 (a cluster size Hopper allows as
+//    non-portable, D <= 10240), where each CTA reduces 4 columns of g and
+//    u a chunk instead of 8 and pushes h in 8-byte pieces.  Its x slice is
 //    loaded once by TMA and stays in shared memory; its out slice is an
 //    fp32 accumulator in the registers of two consumer warpgroups (64 x
 //    320 each at DC = 640, in 232 registers a thread by setmaxnreg; the
@@ -31,10 +35,10 @@
 //    consumer 0 forms the partial g and consumer 1 the partial u over the
 //    CTA's D-slice, wgmma m64n64k16 from shared memory (x K-major, the
 //    weight tiles MN-major, both in the 128-byte swizzled layout that TMA
-//    writes); (ii) each 8-column group of the partials goes to the owning
-//    CTA's shared memory (st.async); the owner sums the 8 partials in rank
-//    order, forms h in fp32, rounds it to bf16 and pushes its 8 columns of
-//    h into every CTA; (iii) each CTA adds h Wd[chunk, slice c] to its out
+//    writes); (ii) each 64 / C-column group of the partials goes to the
+//    owning CTA's shared memory (st.async); the owner sums the C partials
+//    in rank order, forms h in fp32, rounds it to bf16 and pushes its
+//    columns of h into every CTA; (iii) each CTA adds h Wd[chunk, slice c] to its out
 //    slice, the 64-column blocks of the slice taken by the consumers in
 //    turn.  Each consumer has its own ring of kRing = 6 stages of 64 x 64
 //    weight tiles (8 KB; the layout is sized for the widest slice); a
@@ -413,7 +417,6 @@ constexpr int kTileBytes = 64 * 64 * 2;  // one 64 x 64 bf16 tile (a TMA box)
 constexpr int kMaxDC = 640;              // widest D-slice a CTA owns
 constexpr int kMaxNK = kMaxDC / 64;      // its 64-column blocks
 constexpr int kMaxNBW = (kMaxNK + 1) / 2;  // down blocks of a warpgroup
-constexpr int kOwn = kBF / kC;           // columns of g, u a CTA reduces
 constexpr int kWgThreads = 384;          // a producer and two consumer
                                          // warpgroups
 constexpr int kSmemLimit = 232448;       // one CTA's shared memory
@@ -509,6 +512,14 @@ __device__ __forceinline__ void st_async16(uint32_t addr, uint4 v,
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
       "[%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(addr), "r"(v.x), "r"(v.y),
       "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+// 8 bytes into a peer's shared memory, counted like st_async16.
+__device__ __forceinline__ void st_async8(uint32_t addr, uint32_t a,
+                                          uint32_t b, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 "
+      "[%0], {%1, %2}, [%3];\n" ::"r"(addr), "r"(a), "r"(b), "r"(bar)
       : "memory");
 }
 // ---------------------------------------------------------------------------
@@ -966,18 +977,22 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Shared-memory layout of one CTA (byte offsets from a 1024-byte aligned
-// base; the swizzled tiles need that alignment).  x: kMaxNK 64-column
-// blocks of the slice; h: two 64 x 64 buffers (peers write chunk j's while
-// this CTA still reads chunk j - 1's); two rings of kRing weight tiles,
-// one per warpgroup; recv: the fp32 partial g and u of this CTA's kOwn
-// columns from each CTA; then the mbarriers.
+// Shared-memory layout of one CTA of a C-CTA cluster (byte offsets from a
+// 1024-byte aligned base; the swizzled tiles need that alignment).  x:
+// kMaxNK 64-column blocks of the slice; h: two 64 x 64 buffers (peers
+// write chunk j's while this CTA still reads chunk j - 1's); two rings of
+// kRing weight tiles, one per warpgroup; recv: the fp32 partial g and u of
+// this CTA's kOwn columns from each CTA; then the mbarriers.  recv and h
+// take the same bytes at C = 8 and 16 (C kOwn = kBF), so the ring depth
+// is the same.
+template <int C>
 struct WgSmem {
+  static constexpr int kOwn = kBF / C;   // columns of g, u a CTA reduces
   static constexpr int kX = 0;
   static constexpr int kH = kX + kMaxNK * kTileBytes;
   static constexpr int kRingBase = kH + 2 * kTileBytes;
-  static constexpr int kRecvBytes = 2 * kC * kBT * kOwn * 4;
-  static constexpr int kHBytes = kC * kBT * kOwn * 2;    // h arriving a chunk
+  static constexpr int kRecvBytes = 2 * C * kBT * kOwn * 4;
+  static constexpr int kHBytes = C * kBT * kOwn * 2;     // h arriving a chunk
   static constexpr int kBarSlots = 64;
   static constexpr int kRing =
       (kSmemLimit - 1024 - kRingBase - kRecvBytes - kBarSlots * 8) /
@@ -999,8 +1014,8 @@ struct WgSmem {
   static_assert(kBytes <= kSmemLimit, "one CTA's shared memory");
 };
 
-// Grid: kC * splits * row tiles CTAs along x, in clusters of kC, the row
-// tiles fastest.  CTA `rank` of a cluster owns D columns [rank * dc,
+// Grid: C * splits * row tiles CTAs along x, in clusters of C (8, or 16
+// where 8 slices of kMaxDC do not cover D), the row tiles fastest.  CTA `rank` of a cluster owns D columns [rank * dc,
 // rank * dc + dc), dc = 64 nk.  Three warpgroups: warpgroup 0 produces
 // (its warp w < 2 issues the TMA loads of ring w; it keeps 40 registers a
 // thread), warpgroups 1 and 2 consume rings 0 (gate) and 1 (up) and hold
@@ -1014,6 +1029,7 @@ struct WgSmem {
 // every CTA, h_ok(s - 1) too (D(s - 1) is done), and h(s) pushed to every
 // CTA once every CTA has done D(s - 2).  Only stores and mbarrier arrives
 // cross the cluster.
+template <int C>
 __global__ void __launch_bounds__(kWgThreads, 1)
 fused_mlp_kernel_wgmma(const __grid_constant__ CUtensorMap tm_x,
                        const __grid_constant__ CUtensorMap tm_g,
@@ -1021,8 +1037,9 @@ fused_mlp_kernel_wgmma(const __grid_constant__ CUtensorMap tm_x,
                        const __grid_constant__ CUtensorMap tm_d,
                        float* __restrict__ ws, bf16* __restrict__ out,
                        int n_t, int d, int f, int nk, int chunks_per_split) {
-  using L = WgSmem;
+  using L = WgSmem<C>;
   constexpr int R = L::kRing;
+  constexpr int kOwn = L::kOwn;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   float* recv = reinterpret_cast<float*>(
@@ -1038,7 +1055,7 @@ fused_mlp_kernel_wgmma(const __grid_constant__ CUtensorMap tm_x,
   // clusters in launch order walk the row tiles first, so that the
   // clusters that run together read the same weight tiles (from L2)
   const int n_tiles = (n_t + kBT - 1) / kBT;
-  const int cl = static_cast<int>(blockIdx.x) / kC;
+  const int cl = static_cast<int>(blockIdx.x) / C;
   const int split = cl / n_tiles;
   const int t0 = (cl % n_tiles) * kBT;
   const int d0 = rank * nk * 64;
@@ -1061,9 +1078,9 @@ fused_mlp_kernel_wgmma(const __grid_constant__ CUtensorMap tm_x,
     mbar_init(recv_full, 1);
     mbar_init(h_full, 1);
     mbar_init(h_full + 8, 1);
-    mbar_init(recv_ok, kC);
-    mbar_init(h_ok, kC);
-    mbar_init(h_ok + 8, kC);
+    mbar_init(recv_ok, C);
+    mbar_init(h_ok, C);
+    mbar_init(h_ok + 8, C);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   cluster_sync();                        // every CTA's mbarriers are ready
@@ -1155,19 +1172,23 @@ fused_mlp_kernel_wgmma(const __grid_constant__ CUtensorMap tm_x,
         wgmma_wait<0>();
         fence_regs(part);
         release(n - 1);
-        // ---- push each 8-column group of part to its owner ----
+        // ---- push each 4-column group of part to its owner ----
         // lanes l and l ^ 1 hold columns c, c + 1 and c + 2, c + 3 of
         // rows r and r + 8; one shuffle gives the even lane 4 columns of
         // row r and the odd lane 4 of row r + 8, pushed as one 16-byte
-        // vector each
+        // vector each: C = 8, to CTA q at column c4 of its recv; C = 16,
+        // to CTA 2 q + c4 / 4 at column 0
+        constexpr bool kWhole = kOwn == 8;   // a CTA owns a whole group
         if (s > 0) mbar_wait<true>(recv_ok, (s - 1) & 1);
         const bool odd = lane & 1;
         const int c4 = ((lane % 4) / 2) * 4;
         const int row = wwarp * 16 + lane / 4 + (odd ? 8 : 0);
         const uint32_t dst =
-            smem_u32(recv + ((wg * kC + rank) * kBT + row) * kOwn + c4);
+            smem_u32(recv + ((wg * C + rank) * kBT + row) * kOwn +
+                     (kWhole ? c4 : 0));
 #pragma unroll
-        for (int q = 0; q < kC; ++q) {   // columns 8 q .. 8 q + 7 -> CTA q
+        for (int q = 0; q < 8; ++q) {    // columns 8 q .. 8 q + 7
+          const int owner = kWhole ? q : 2 * q + c4 / 4;
           const float* p = part + 4 * q;
           const float s0 = __shfl_xor_sync(0xffffffffu, odd ? p[0] : p[2], 1);
           const float s1 = __shfl_xor_sync(0xffffffffu, odd ? p[1] : p[3], 1);
@@ -1176,7 +1197,7 @@ fused_mlp_kernel_wgmma(const __grid_constant__ CUtensorMap tm_x,
                                __float_as_uint(p[2]), __float_as_uint(p[3]))
                   : make_uint4(__float_as_uint(p[0]), __float_as_uint(p[1]),
                                __float_as_uint(s0), __float_as_uint(s1));
-          st_async16(mapa(dst, q), v, mapa(recv_full, q));
+          st_async16(mapa(dst, owner), v, mapa(recv_full, owner));
         }
       }
       if (s > 0) {
@@ -1208,48 +1229,80 @@ fused_mlp_kernel_wgmma(const __grid_constant__ CUtensorMap tm_x,
       }
       if (s < nch) {
         // ---- X(s): this CTA's kOwn columns of g and u summed over the
-        // kC partials in rank order, h formed in fp32, rounded to bf16 and
-        // pushed into every CTA's h buffer of chunk s ----
+        // C partials in rank order, h formed in fp32, rounded to bf16 and
+        // pushed into every CTA's h buffer of chunk s; a thread takes
+        // kOwn / 4 columns of a row ----
         if (ctid == 0) mbar_expect_tx(recv_full, L::kRecvBytes);
         mbar_wait<true>(recv_full, s & 1);
+        constexpr int kCols = kOwn / 4;
         const int row = ctid / 4;
-        const int c2 = (ctid % 4) * 2;
-        float g0 = 0.f, g1 = 0.f, u0 = 0.f, u1 = 0.f;
+        const int cc = (ctid % 4) * kCols;
+        float g[kCols], u[kCols];
 #pragma unroll
-        for (int r = 0; r < kC; ++r) {
-          const float* p = recv + (r * kBT + row) * kOwn + c2;
-          const float2 g = *reinterpret_cast<const float2*>(p);
-          const float2 u =
-              *reinterpret_cast<const float2*>(p + kC * kBT * kOwn);
-          g0 += g.x;
-          g1 += g.y;
-          u0 += u.x;
-          u1 += u.y;
+        for (int e = 0; e < kCols; ++e) g[e] = u[e] = 0.f;
+#pragma unroll
+        for (int r = 0; r < C; ++r) {
+          const float* p = recv + (r * kBT + row) * kOwn + cc;
+          if constexpr (kCols == 2) {      // 8-byte loads
+            const float2 gv = *reinterpret_cast<const float2*>(p);
+            const float2 uv =
+                *reinterpret_cast<const float2*>(p + C * kBT * kOwn);
+            g[0] += gv.x;
+            g[1] += gv.y;
+            u[0] += uv.x;
+            u[1] += uv.y;
+          } else {
+            g[0] += p[0];
+            u[0] += p[C * kBT * kOwn];
+          }
         }
         // both consumers: recv read, D(s - 1) done
         asm volatile("bar.sync 1, 256;\n" ::: "memory");
-        if (ctid < kC) mbar_arrive_cluster(mapa(recv_ok, ctid));
-        if (s > 0 && ctid >= kC && ctid < 2 * kC) {
-          mbar_arrive_cluster(mapa(h_ok + ((s - 1) % 2) * 8, ctid - kC));
+        if (ctid < C) mbar_arrive_cluster(mapa(recv_ok, ctid));
+        if (s > 0 && ctid >= C && ctid < 2 * C) {
+          mbar_arrive_cluster(mapa(h_ok + ((s - 1) % 2) * 8, ctid - C));
         }
-        const __nv_bfloat162 h2 =
-            __floats2bfloat162_rn(silu_mul(g0, u0), silu_mul(g1, u1));
-        // the 4 lanes of a row gather its kOwn = 8 columns (16 bytes);
-        // lane i of the 4 pushes them into CTAs 2 i and 2 i + 1, at chunk
-        // `rank` of the row in the swizzled layout
-        uint32_t h4[4];
-        const uint32_t mine = *reinterpret_cast<const uint32_t*>(&h2);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          h4[i] = __shfl_sync(0xffffffffu, mine, (lane & ~3) + i);
-        }
-        const uint4 hv = make_uint4(h4[0], h4[1], h4[2], h4[3]);
+        // the 4 lanes of a row gather its kOwn columns (2 kOwn bytes),
+        // which sit at byte 2 rank kOwn of the row: 16-byte chunk byte / 16
+        // (swizzled with the row) and byte % 16 in it; lane i of the 4
+        // pushes them into CTAs i C / 4 .. (i + 1) C / 4 - 1
+        const int byte = rank * kOwn * 2;
         const uint32_t hj = base + L::kH + (s % 2) * kTileBytes + row * 128 +
-                            ((rank ^ (row & 7)) << 4);
-        if (s >= 2) mbar_wait<true>(h_ok + (s % 2) * 8, ((s - 2) / 2) & 1);
+                            ((((byte >> 4) ^ (row & 7))) << 4) + (byte & 15);
+        const uint32_t hbar = h_full + (s % 2) * 8;
+        if constexpr (kCols == 2) {
+          const __nv_bfloat162 h2 = __floats2bfloat162_rn(
+              silu_mul(g[0], u[0]), silu_mul(g[1], u[1]));
+          uint32_t h4[4];
+          const uint32_t mine = *reinterpret_cast<const uint32_t*>(&h2);
 #pragma unroll
-        for (int r = 2 * (ctid % 4); r < 2 * (ctid % 4) + 2; ++r) {
-          st_async16(mapa(hj, r), hv, mapa(h_full + (s % 2) * 8, r));
+          for (int i = 0; i < 4; ++i) {
+            h4[i] = __shfl_sync(0xffffffffu, mine, (lane & ~3) + i);
+          }
+          const uint4 hv = make_uint4(h4[0], h4[1], h4[2], h4[3]);
+          if (s >= 2) mbar_wait<true>(h_ok + (s % 2) * 8, ((s - 2) / 2) & 1);
+#pragma unroll
+          for (int r = (C / 4) * (ctid % 4); r < (C / 4) * (ctid % 4 + 1);
+               ++r) {
+            st_async16(mapa(hj, r), hv, mapa(hbar, r));
+          }
+        } else {
+          static_assert(kCols == 1, "a thread forms 1 or 2 columns of h");
+          const bf16 h1 = __float2bfloat16_rn(silu_mul(g[0], u[0]));
+          const uint32_t mine = static_cast<uint32_t>(
+              *reinterpret_cast<const uint16_t*>(&h1));
+          // lanes 4 j .. 4 j + 3 hold a row's 4 columns: pair them
+          const uint32_t lo = __shfl_sync(0xffffffffu, mine, lane & ~3);
+          const uint32_t m1 = __shfl_sync(0xffffffffu, mine, (lane & ~3) + 1);
+          const uint32_t m2 = __shfl_sync(0xffffffffu, mine, (lane & ~3) + 2);
+          const uint32_t m3 = __shfl_sync(0xffffffffu, mine, (lane & ~3) + 3);
+          const uint32_t w0 = lo | (m1 << 16), w1 = m2 | (m3 << 16);
+          if (s >= 2) mbar_wait<true>(h_ok + (s % 2) * 8, ((s - 2) / 2) & 1);
+#pragma unroll
+          for (int r = (C / 4) * (ctid % 4); r < (C / 4) * (ctid % 4 + 1);
+               ++r) {
+            st_async8(mapa(hj, r), w0, w1, mapa(hbar, r));
+          }
         }
       }
     }
@@ -1292,10 +1345,10 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// 64-column blocks of D each CTA of a cluster owns: D / kC rounded up to a
-// multiple of 64, so that slices never overlap and every TMA box of x and
-// Wg, Wu rows lies in one slice (or past D, where TMA reads zeros).
-int cluster_nk(int d) { return ((d + kC - 1) / kC + 63) / 64; }
+// 64-column blocks of D each CTA of a C-CTA cluster owns: D / C rounded up
+// to a multiple of 64, so that slices never overlap and every TMA box of x
+// and Wg, Wu rows lies in one slice (or past D, where TMA reads zeros).
+int wgmma_nk(int d, int c) { return ((d + c - 1) / c + 63) / 64; }
 
 template <typename T>
 cudaError_t launch_reduce(const float* ws, T* out, size_t n, int n_split,
@@ -1340,15 +1393,16 @@ bool tensor_map(CUtensorMap* m, const void* ptr, int rows, int cols) {
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int C>
 cudaLaunchConfig_t wgmma_config(int n_split, int n_tiles, cudaStream_t stream,
                                 cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kC * n_split * n_tiles, 1, 1);
+  cfg.gridDim = dim3(C * n_split * n_tiles, 1, 1);
   cfg.blockDim = dim3(kWgThreads, 1, 1);
-  cfg.dynamicSmemBytes = WgSmem::kBytes;
+  cfg.dynamicSmemBytes = WgSmem<C>::kBytes;
   cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kC;
+  attr[0].val.clusterDim.x = C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -1356,21 +1410,32 @@ cudaLaunchConfig_t wgmma_config(int n_split, int n_tiles, cudaStream_t stream,
   return cfg;
 }
 
-// Dynamic shared memory above 48 KB must be allowed once per kernel.
-cudaError_t wgmma_set_smem() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_kernel_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      WgSmem::kBytes);
+// Dynamic shared memory above 48 KB must be allowed once per kernel, and
+// a cluster of more than 8 CTAs (not portable: Hopper runs up to 16).
+template <int C>
+cudaError_t wgmma_set_attributes() {
+  static const cudaError_t err = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        fused_mlp_kernel_wgmma<C>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, WgSmem<C>::kBytes);
+    if (e == cudaSuccess && C > 8) {
+      e = cudaFuncSetAttribute(fused_mlp_kernel_wgmma<C>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    }
+    return e;
+  }();
   return err;
 }
 
 // With one split the kernel writes the bf16 result itself; else each
 // split writes its fp32 partial to ws and fused_mlp_kernel_reduce sums.
+template <int C>
 cudaError_t launch_wgmma(const bf16* x, const bf16* wg, const bf16* wu,
                          const bf16* wd, float* ws, bf16* out, int n_t,
                          int d, int f, int n_split, int cps,
                          cudaStream_t stream) {
-  cudaError_t err = wgmma_set_smem();
+  cudaError_t err = wgmma_set_attributes<C>();
   if (err != cudaSuccess) return err;
   CUtensorMap tx, tg, tu, td;
   if (!tensor_map(&tx, x, n_t, d) || !tensor_map(&tg, wg, d, f) ||
@@ -1379,10 +1444,10 @@ cudaError_t launch_wgmma(const bf16* x, const bf16* wg, const bf16* wu,
   }
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
-      wgmma_config(n_split, (n_t + kBT - 1) / kBT, stream, attr);
-  err = cudaLaunchKernelEx(&cfg, fused_mlp_kernel_wgmma, tx, tg, tu, td, ws,
-                           n_split == 1 ? out : nullptr, n_t, d, f,
-                           cluster_nk(d), cps);
+      wgmma_config<C>(n_split, (n_t + kBT - 1) / kBT, stream, attr);
+  err = cudaLaunchKernelEx(&cfg, fused_mlp_kernel_wgmma<C>, tx, tg, tu, td,
+                           ws, n_split == 1 ? out : nullptr, n_t, d, f,
+                           wgmma_nk(d, C), cps);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err == cudaSuccess && n_split > 1) {
     err = launch_reduce(ws, out, static_cast<size_t>(n_t) * d, n_split,
@@ -1471,6 +1536,19 @@ int max_clusters() {
   return n;
 }
 
+template <int C>
+int wgmma_max_clusters() {
+  if (wgmma_set_attributes<C>() != cudaSuccess) return -1;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = wgmma_config<C>(1, 1, nullptr, attr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, fused_mlp_kernel_wgmma<C>, &cfg) !=
+      cudaSuccess) {
+    return -1;
+  }
+  return n;
+}
+
 // Rows a block of the rows regime takes (kernels/fused_mlp.py:ROWS_BT).
 constexpr int kRowsBtF32 = 8;
 constexpr int kRowsBtBf16 = 4;
@@ -1550,33 +1628,28 @@ int fused_mlp_rows_blocks_per_sm(int dtype, int d) {
 }
 
 // Clusters that fit the card at once (cudaOccupancyMaxActiveClusters) of
-// the wgmma regime (dc_tile 0) or of the mma.sync regime's D-slice tile
-// dc_tile; 0 if none fits, negative on an error or an unknown tile.
-int fused_mlp_max_active_clusters(int dc_tile) {
-  switch (dc_tile) {
-    case 0: break;
+// the wgmma regime (regime 1, tile = its cluster's CTAs, 8 or 16) or of
+// the mma.sync regime (regime 2, tile = its D-slice tile); 0 if none fits,
+// negative on an error or an unknown tile.
+int fused_mlp_max_active_clusters(int regime, int tile) {
+  if (regime == 1 && tile == 8) return wgmma_max_clusters<8>();
+  if (regime == 1 && tile == 16) return wgmma_max_clusters<16>();
+  if (regime != 2) return -1;
+  switch (tile) {
     case 64: return max_clusters<64>();
     case 128: return max_clusters<128>();
     case 256: return max_clusters<256>();
     case 320: return max_clusters<320>();
     default: return -1;
   }
-  if (wgmma_set_smem() != cudaSuccess) return -1;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = wgmma_config(1, 1, nullptr, attr);
-  int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, fused_mlp_kernel_wgmma, &cfg) !=
-      cudaSuccess) {
-    return -1;
-  }
-  return n;
 }
 
 // x: (T, D); wg, wu: (D, F); wd: (F, D), row-major, one dtype (0 =
 // float32, 1 = bfloat16).  ws: n_split * T * D float32 scratch; out:
 // (T, D) in the inputs' dtype.  regime 0 = rows (any dtype), 1 = wgmma
-// (bf16, D <= kC kMaxDC = 5120, D and F multiples of 8, 16-byte aligned
-// pointers), 2 = mma.sync cluster (bf16, D-slice tile dc_tile).  A
+// (bf16, clusters of dc_tile = 8 or 16 CTAs, D <= dc_tile kMaxDC, D and F
+// multiples of 8, 16-byte aligned pointers), 2 = mma.sync cluster (bf16,
+// D-slice tile dc_tile).  A
 // cluster regime's split s takes the kBF-wide F chunks [s * cps, (s + 1)
 // * cps); rows split s an even share of F's 16-byte column groups, at
 // least one (cps unused).  Launches the regime's kernel and the reduce on
@@ -1594,7 +1667,8 @@ int fused_mlp_launch(const void* x, const void* wg, const void* wu,
        (dtype != 1 || cps <= 0 ||
         static_cast<long long>(n_split) * cps < n_chunks ||
         static_cast<long long>(n_split - 1) * cps >= n_chunks)) ||
-      (regime == 1 && (d > kC * kMaxDC || d % 8 != 0 || f % 8 != 0 ||
+      (regime == 1 && ((dc_tile != 8 && dc_tile != 16) ||
+                       d > dc_tile * kMaxDC || d % 8 != 0 || f % 8 != 0 ||
                        !ptrs || !aligned16(out))) ||
       (regime == 2 && cluster_dc(d) > dc_tile) ||
       (regime == 0 && n_split > (dtype == 0 ? (f + 3) / 4 : (f + 7) / 8))) {
@@ -1605,11 +1679,16 @@ int fused_mlp_launch(const void* x, const void* wg, const void* wu,
   const size_t n = static_cast<size_t>(n_t) * d;
   cudaError_t err = cudaErrorInvalidValue;
   if (regime == 1) {
-    err = launch_wgmma(static_cast<const bf16*>(x),
-                       static_cast<const bf16*>(wg),
-                       static_cast<const bf16*>(wu),
-                       static_cast<const bf16*>(wd), w,
-                       static_cast<bf16*>(out), n_t, d, f, n_split, cps, s);
+    const bf16 *bx = static_cast<const bf16*>(x),
+               *bg = static_cast<const bf16*>(wg),
+               *bu = static_cast<const bf16*>(wu),
+               *bd = static_cast<const bf16*>(wd);
+    bf16* o = static_cast<bf16*>(out);
+    err = dc_tile == 8
+              ? launch_wgmma<8>(bx, bg, bu, bd, w, o, n_t, d, f, n_split,
+                                cps, s)
+              : launch_wgmma<16>(bx, bg, bu, bd, w, o, n_t, d, f, n_split,
+                                 cps, s);
   } else if (regime == 2) {
     const bf16 *bx = static_cast<const bf16*>(x),
                *bg = static_cast<const bf16*>(wg),

@@ -9,9 +9,10 @@ from T, D and the dtype (the source's header says what bounds each):
 * ``wgmma``, bf16 prefill (at least ``PREFILL_MIN_T`` rows) past one row
   tile, or at D > 2560: warpgroup MMA (``wgmma``) fed by TMA, a producer
   warpgroup and two consumer warpgroups a CTA, across a cluster of
-  ``CLUSTER`` CTAs that each own a 64-column-aligned slice of D (up to
-  ``WGMMA_MAX_DC``, so D <= 5120; a wider D raises) and share h through
-  distributed shared memory;
+  ``wgmma_ctas(D)`` CTAs (8, or 16 where 8 slices of ``WGMMA_MAX_DC``
+  columns do not cover D) that each own a 64-column-aligned slice of D
+  (up to ``WGMMA_MAX_DC``, so D <= 10240; a wider D raises) and share h
+  through distributed shared memory;
 * ``cluster``, bf16 prefill of one row tile (``PREFILL_MIN_T`` to
   ``CLUSTER_BT`` rows) at D <= 2560: the same hand-off on ``mma.sync``,
   which streams the weights of such a call faster (``PERF.md``);
@@ -59,9 +60,12 @@ CLUSTER_BT = 64
 #: the widest D-slice a CTA of the ``wgmma`` regime owns (``kMaxDC``): its
 #: out slice, 64 x 640 fp32, takes 160 of each consumer thread's 232
 #: registers, and its x slice and weight rings fill its shared memory.
-#: Slices are multiples of 64 columns (a TMA box, a wgmma tile), so
-#: D <= 5120 runs and a wider D raises
+#: Slices are multiples of 64 columns (a TMA box, a wgmma tile)
 WGMMA_MAX_DC = 640
+#: CTAs a ``wgmma`` cluster may take: 8 (portable) up to D = 5120, then
+#: 16, the most Hopper runs as one cluster, up to D = 10240; a wider D
+#: raises
+WGMMA_CLUSTERS = (8, 16)
 #: D-slice widths the ``cluster`` (mma.sync) kernel is built for: a CTA's
 #: slice of D, D / 8 rounded up to 16 bytes, is padded to the smallest
 #: that holds it (D <= 2560)
@@ -82,13 +86,28 @@ ROWS_WAVES = 4
 ROWS_MIN_COLS = 16
 
 
-def wgmma_dc(D: int) -> int:
-    """Columns of D each CTA of a ``wgmma`` cluster owns: D / CLUSTER
-    rounded up to a multiple of 64 (128 bytes of bf16), so that the
+def wgmma_dc(D: int, ctas: int = CLUSTER) -> int:
+    """Columns of D each CTA of a ``ctas``-CTA ``wgmma`` cluster owns: D /
+    ctas rounded up to a multiple of 64 (128 bytes of bf16), so that the
     slices never overlap; the last ones may lie partly or wholly past D,
     where TMA reads zeros."""
-    per_cta = -(-D // CLUSTER)
+    per_cta = -(-D // ctas)
     return -(-per_cta // 64) * 64
+
+
+def wgmma_ctas(D: int) -> int:
+    """CTAs of a ``wgmma`` cluster at width D: the fewest of
+    ``WGMMA_CLUSTERS`` whose slices are at most ``WGMMA_MAX_DC`` wide
+    (so D <= 5120 keeps its 8-CTA clusters); raises past the widest."""
+    for ctas in WGMMA_CLUSTERS:
+        if wgmma_dc(D, ctas) <= WGMMA_MAX_DC:
+            return ctas
+    top = WGMMA_CLUSTERS[-1]
+    raise ValueError(
+        f"fused_mlp: bf16 prefill at D={D} needs "
+        f"{wgmma_dc(D, top)}-column D-slices even in {top}-CTA clusters, "
+        f"wider than the wgmma regime's {WGMMA_MAX_DC} "
+        f"(D <= {top * WGMMA_MAX_DC})")
 
 
 def cluster_dc(D: int) -> int:
@@ -102,8 +121,8 @@ def choose_regime(T: int, D: int, bf16: bool) -> Tuple[str, int]:
     """(regime, D-slice width) for a call.  bf16 with ``T >=
     PREFILL_MIN_T``: ``("cluster", tile)`` for one row tile (``T <=
     CLUSTER_BT``) whose ``cluster_dc(D)`` fits a ``CLUSTER_DC_TILES``
-    tile, else ``("wgmma", wgmma_dc(D))``; a ``wgmma`` D-slice wider than
-    ``WGMMA_MAX_DC`` raises (no regime of this card takes it: the rows
+    tile, else ``("wgmma", wgmma_dc(D, wgmma_ctas(D)))``; past D = 10240
+    ``wgmma_ctas`` raises (no regime of this card takes it: the rows
     regime re-reads the weights every 4 rows).  Otherwise ``("rows",
     0)``."""
     if bf16 and T >= PREFILL_MIN_T:
@@ -111,13 +130,7 @@ def choose_regime(T: int, D: int, bf16: bool) -> Tuple[str, int]:
             fits = [t for t in CLUSTER_DC_TILES if t >= cluster_dc(D)]
             if fits:
                 return "cluster", fits[0]
-        dc = wgmma_dc(D)
-        if dc > WGMMA_MAX_DC:
-            raise ValueError(
-                f"fused_mlp: bf16 prefill at D={D} needs {dc}-column "
-                f"D-slices, wider than the wgmma regime's {WGMMA_MAX_DC} "
-                f"(D <= {CLUSTER * WGMMA_MAX_DC})")
-        return "wgmma", dc
+        return "wgmma", wgmma_dc(D, wgmma_ctas(D))
     return "rows", 0
 
 
@@ -179,7 +192,7 @@ def _library() -> ctypes.CDLL:
     lib.fused_mlp_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
                                      i, p]
     lib.fused_mlp_launch.restype = i
-    lib.fused_mlp_max_active_clusters.argtypes = [i]
+    lib.fused_mlp_max_active_clusters.argtypes = [i, i]
     lib.fused_mlp_max_active_clusters.restype = i
     lib.fused_mlp_rows_blocks_per_sm.argtypes = [i, i]
     lib.fused_mlp_rows_blocks_per_sm.restype = i
@@ -196,15 +209,16 @@ def _sm_count(index: int) -> int:
 
 
 @functools.cache
-def _cluster_slots(index: int, tile: int) -> int:
+def _cluster_slots(index: int, regime: int, tile: int) -> int:
     """Clusters that fit card ``index`` at once: of the ``wgmma`` kernel
-    (``tile`` 0) or of the ``cluster`` kernel's D-slice tile ``tile``."""
+    of ``tile`` CTAs, or of the ``cluster`` kernel's D-slice tile
+    ``tile``."""
     with torch.cuda.device(index):
-        n = _library().fused_mlp_max_active_clusters(tile)
+        n = _library().fused_mlp_max_active_clusters(regime, tile)
     if n <= 0:
-        raise RuntimeError(f"fused_mlp: no {CLUSTER}-CTA cluster of the "
-                           f"prefill kernel (tile {tile}) fits this card "
-                           f"({n})")
+        raise RuntimeError(f"fused_mlp: no cluster of the prefill kernel "
+                           f"(regime {regime}, tile {tile}) fits this "
+                           f"card ({n})")
     return n
 
 
@@ -221,17 +235,21 @@ def _rows_slots(index: int, dtype: torch.dtype, D: int) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def _plan(index: int, T: int, D: int, F: int, dtype: torch.dtype):
-    """(regime code, D-slice tile, splits, chunks per split, workspace
-    floats) of a call; a cluster call with one split needs no workspace."""
+    """(regime code, tile, splits, chunks per split, workspace floats) of
+    a call: the tile is the ``cluster`` regime's D-slice tile, the
+    ``wgmma`` regime's CTAs a cluster; a cluster call with one split
+    needs no workspace."""
     regime, dc = choose_regime(T, D, dtype == torch.bfloat16)
-    tile = dc if regime == "cluster" else 0
+    tile = (dc if regime == "cluster" else
+            wgmma_ctas(D) if regime == "wgmma" else 0)
     if regime == "rows":
         n_split, per = rows_splits(-(-T // ROWS_BT[dtype]), F,
                                    _rows_slots(index, dtype, D)), 0
         ws = n_split * T * D
     else:
         n_split, per = split_f(-(-T // CLUSTER_BT), F,
-                               _cluster_slots(index, tile))
+                               _cluster_slots(index, _REGIMES[regime],
+                                              tile))
         ws = 0 if n_split == 1 else n_split * T * D
     return _REGIMES[regime], tile, n_split, per, ws
 

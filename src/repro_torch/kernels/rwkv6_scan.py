@@ -48,6 +48,13 @@ SUB = 4
 #: value columns a chunked block may own (the kernel's instantiations)
 VALUE_SPLITS = (8, 16, 32)
 _REGIMES = {"step": 0, "chunked": 1}
+#: steps a block of ``wkv6_blocks``: its scores' exponents take
+#: BH T BLOCK N floats, and its carry two ops a block
+BLOCK = 32
+#: the least log decay ``wkv6_blocks`` takes: exp(-80) is 2e-35, a state
+#: wiped as far as float32 sees, and sums of -80 keep their small
+#: differences to about 1e-5
+LOG_W_MIN = -80.0
 
 
 def choose_regime(T: int, N: int) -> str:
@@ -144,6 +151,63 @@ def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = (pre[n][:, :, None] * s
              + torch.bmm((kc * torch.stack(suf, 1)).transpose(1, 2), vc))
     return torch.cat(ys, dim=1), s
+
+
+@_ROWS
+def wkv6_blocks(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                log_w: torch.Tensor, u: torch.Tensor,
+                s0: Optional[torch.Tensor] = None, block: int = BLOCK
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The models' plain path: the recurrence a block of ``block`` steps
+    per op, in float32 (float64 inputs stay float64), differentiable.
+    It takes the log decays ``log_w`` (<= 0; the model has them exactly,
+    -exp of its decay projection), so that no gradient divides by a decay
+    near 0.
+
+    Per block, with lw = log w summed along the block inclusive (c_t) and
+    exclusive (x_t), every decay is exp of a sum of lw: the scores
+    A[t, tau] = sum_i r_ti k_taui exp(x_ti - c_taui) for tau < t, the
+    exponent set to -inf on and above the diagonal before exp, so no
+    exponent is positive; y = (r exp(x)) S_in + A v + (r u k) v, the
+    bonus on the diagonal; the state carried to the next block, exp(c_end)
+    S_in + sum_tau (k_tau exp(c_end - c_tau))^T v_tau.  Every op but the
+    carry runs over all blocks at once; the carry is two ops a block.  A
+    log decay below ``LOG_W_MIN`` (a decay of 0 included) counts as that
+    bound, which keeps the sums finite.  A last block shorter than
+    ``block`` is padded with steps of decay 1 and zero r, k, v.
+    ``wkv6_ref`` on w = exp(log_w) is the step-by-step witness it is held
+    to."""
+    BH, T, N = r.shape
+    dt = torch.float64 if r.dtype == torch.float64 else torch.float32
+    r, k, v = (t.to(dt) for t in (r, k, v))
+    lw = torch.clamp(log_w.to(dt), min=LOG_W_MIN)
+    L = min(block, T)
+    nb = -(-T // L)
+    if nb * L > T:
+        pad = r.new_zeros((BH, nb * L - T, N))
+        r, k, v, lw = (torch.cat([t, pad], 1) for t in (r, k, v, lw))
+    rb, kb, vb, lw = (t.reshape(BH, nb, L, N) for t in (r, k, v, lw))
+    c = torch.cumsum(lw, dim=2)                           # sum_{s<=t}
+    x = torch.nn.functional.pad(c[:, :, :-1], (0, 0, 1, 0))  # sum_{s<t}
+    past = torch.ones((L, L), dtype=torch.bool, device=r.device).tril(-1)
+    expo = (x[:, :, :, None, :] - c[:, :, None, :, :]).masked_fill(
+        ~past[:, :, None], float("-inf"))                 # (BH,nb,t,tau,N)
+    a = ((rb[:, :, :, None, :] * kb[:, :, None, :, :])
+         * torch.exp(expo)).sum(-1)                       # (BH, nb, L, L)
+    # each block's own part of the state it hands on, and its decay
+    kv = torch.matmul((kb * torch.exp(c[:, :, -1:] - c)).transpose(-1, -2),
+                      vb)                                 # (BH, nb, N, N)
+    decay = torch.exp(c[:, :, -1, :, None])               # (BH, nb, N, 1)
+    s = (torch.zeros((BH, N, N), dtype=dt, device=r.device) if s0 is None
+         else s0.to(dt))
+    starts = []
+    for kv_b, d_b in zip(kv.unbind(1), decay.unbind(1)):
+        starts.append(s)
+        s = d_b * s + kv_b
+    y = (torch.matmul(rb * torch.exp(x), torch.stack(starts, 1))
+         + torch.matmul(a, vb)
+         + (rb * u.to(dt)[:, None] * kb).sum(-1, keepdim=True) * vb)
+    return y.reshape(BH, nb * L, N)[:, :T], s
 
 
 @functools.cache

@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--arch qwen2.5-3b] \
         [--smoke] [--use-kernels] [--kv-quant] [--requests 6] [--max-new 12] \
-        [--plan] [--plan-store DIR] [--device cuda|cpu]
+        [--plan] [--plan-store DIR] [--device cuda|cpu] [--no-cuda-graph]
     PYTHONPATH=src python -m repro_torch.launch.serve --use-kernels \
         --tenants "qwen2.5-3b:2:1,rwkv6-1.6b:1" [--plan-store DIR]
 
@@ -23,6 +23,11 @@ Decode attention stays plain: the flash-attention kernel serves
 attention without a cache (``forward``), and a decode query sits at a
 per-slot position against a per-slot cache fill, which that kernel,
 like the reference's, does not take (it counts query rows from 0).
+
+On the card each engine replays its decode step as one captured CUDA
+graph a tick (``ServeEngine(cuda_graph=True)``); ``--no-cuda-graph`` runs
+the eager step instead, for comparison, and ``--cuda-graph`` with
+``--device cpu`` raises.
 
 ``--plan`` attaches the PipeOrgan accelerator plan of the decode step (a
 ``PlanRequest`` of ``decode_graph`` through the shared planner facade,
@@ -118,7 +123,8 @@ def serve_tenants(args, device: torch.device):
     for i, (spec, cfg) in enumerate(zip(request.tenants, cfgs)):
         params = init_model(cfg, seed=i, device=device)
         engines[spec.name] = ServeEngine(params, cfg, batch_slots=args.slots,
-                                         max_len=args.max_len, device=device)
+                                         max_len=args.max_len, device=device,
+                                         cuda_graph=args.cuda_graph)
 
     t0 = time.perf_counter()
     plan = resolve_multi_tenant(request, store=plan_store)
@@ -172,7 +178,8 @@ def serve_one(args, device: torch.device):
             plan_store = PlanStore(args.plan_store)
     engine = ServeEngine(params, cfg, batch_slots=args.slots,
                          max_len=args.max_len, device=device,
-                         plan_request=plan_request, plan_store=plan_store)
+                         plan_request=plan_request, plan_store=plan_store,
+                         cuda_graph=args.cuda_graph)
     for i in range(args.requests):
         engine.submit(Request(rid=i, prompt=[2 + i, 7, 3 * i + 1],
                               max_new_tokens=args.max_new))
@@ -184,7 +191,8 @@ def serve_one(args, device: torch.device):
     print(f"served {len(done)} requests / {total} tokens in {dt*1e3:.0f} ms "
           f"({total/dt:.0f} tok/s, {engine.ticks} ticks, {args.slots} slots, "
           f"{cfg.name} on {device}, kv_quant={cfg.kv_quant}, "
-          f"use_kernels={cfg.use_kernels})")
+          f"use_kernels={cfg.use_kernels}, "
+          f"cuda_graph={engine.cuda_graph})")
     if engine.plan is not None:
         print(f"decode plan: source={engine.plan_source} "
               f"{engine.plan.latency_cycles:.3e} cycles/token, "
@@ -209,6 +217,10 @@ def main(argv: Optional[List[str]] = None):
     ap.add_argument("--use-kernels", action="store_true",
                     help="run the hand-written CUDA kernels of the path")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--cuda-graph", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="replay each decode tick as one captured CUDA "
+                         "graph (default: on a CUDA device)")
     ap.add_argument("--plan", action="store_true",
                     help="attach the accelerator plan for the decode step")
     ap.add_argument("--plan-store", default=None, metavar="DIR",

@@ -10,9 +10,11 @@ Port of ``repro.models.rglru``.  RG-LRU (arXiv:2402.19427):
 ``rg_lru`` (a prompt, or one decode token from the carried h) computes
 a_t and b_t = sqrt(1 - a_t^2) i_t x_t as the reference does, then hands
 h_t = a_t h_{t-1} + b_t to ``kernels.rglru_scan.rglru_chunked`` when
-``use_kernels`` is set, else to its plain version ``rglru_ref``.  Given a
-``state``, ``recurrent_block`` writes the new state into those tensors in
-place and returns them.
+``use_kernels`` is set, else to ``rglru_doubling``, the plain form that
+advances all of T in log2 T rounds (``rglru_ref``, the step-by-step
+recurrence, is the witness both are held to).  Given a ``state``,
+``recurrent_block`` writes the new state into those tensors in place and
+returns them.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.distributed.hints import hint
-from repro_torch.kernels.rglru_scan import rglru_chunked, rglru_ref
+from repro_torch.kernels.rglru_scan import rglru_chunked, rglru_doubling
 
 from .common import ModelConfig, Params, dense_init
 
@@ -85,7 +87,7 @@ def rg_lru(p: Params, x: torch.Tensor, h0: Optional[torch.Tensor] = None,
     recurrence as its start (the reference folds ``a_0 h0`` into ``b_0``:
     the same value)."""
     a, b = _gates(p, x.float())
-    fn = rglru_chunked if use_kernels else rglru_ref
+    fn = rglru_chunked if use_kernels else rglru_doubling
     h, h_last = fn(a, b, None if h0 is None else h0.float())
     return h.to(x.dtype), h_last[:, 0, :]
 

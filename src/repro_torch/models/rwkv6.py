@@ -9,7 +9,9 @@ Port of ``repro.models.rwkv6``.  Time mixing (per head, head size 64):
 The reference's model path runs the recurrence as a ``lax.scan``; here
 ``time_mix`` hands it to ``kernels.rwkv6_scan.wkv6`` at every sequence
 length (a prompt in prefill, T = 1 with the cached state in decode) when
-``cfg.use_kernels`` is set, else to its plain version ``wkv6_ref``.
+``cfg.use_kernels`` is set, else to ``wkv6_blocks``, the plain form that
+advances a block of steps per op (``wkv6_ref``, the step-by-step
+recurrence, is the witness both are held to).
 Given a ``state``, ``time_mix`` and ``channel_mix`` write the new state
 into those tensors in place and return them.
 
@@ -18,7 +20,7 @@ the parameters' shardings make them in the reference: ``time_mix``'s
 token shift and low-rank lerp run on each rank's rows (their small
 weights gathered), its five projections give each rank its columns,
 the recurrence and the group norm run on each rank's heads (a local
-region: DTensor has no rule for the step loop), and ``w_o``'s rows are
+region: DTensor has no rule for the recurrence), and ``w_o``'s rows are
 summed over the model axis; ``channel_mix`` is a column- then
 row-split product.  A state is written back in place whatever its
 placements.
@@ -31,7 +33,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed.hints import hint, local_call
-from repro_torch.kernels.rwkv6_scan import wkv6, wkv6_ref
+from repro_torch.kernels.rwkv6_scan import wkv6, wkv6_blocks
 
 from .common import ModelConfig, Params, dense_init
 
@@ -91,19 +93,22 @@ def _ddlerp(p: Params, x: torch.Tensor, shifted: torch.Tensor
 
 
 def _wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         w: torch.Tensor, u: torch.Tensor, s0: Optional[torch.Tensor],
+         log_w: torch.Tensor, u: torch.Tensor, s0: Optional[torch.Tensor],
          use_kernels: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """The WKV-6 recurrence in the model's layout.
 
-    r, k, v, w: (B, S, H, N) float32; u: (H, N); s0: (B, H, N, N) or
-    None.  Returns y (B, S, H, N) and the last state (B, H, N, N)."""
+    r, k, v, log_w (the log decays, <= 0): (B, S, H, N) float32; u: (H,
+    N); s0: (B, H, N, N) or None.  The kernel takes the decays exp(log_w),
+    the plain form the log decays themselves.  Returns y (B, S, H, N) and
+    the last state (B, H, N, N)."""
     B, S, H, N = r.shape
+    decay = torch.exp(log_w) if use_kernels else log_w
     # contiguous for the kernel: with B = 1 the reshape is a strided view
     rows = [t.transpose(1, 2).reshape(B * H, S, N).contiguous()
-            for t in (r, k, v, w)]
+            for t in (r, k, v, decay)]
     uu = u.float()[None].expand(B, H, N).reshape(B * H, 1, N)
     s = None if s0 is None else s0.reshape(B * H, N, N)
-    fn = wkv6 if use_kernels else wkv6_ref
+    fn = wkv6 if use_kernels else wkv6_blocks
     y, s_last = fn(*rows, uu, s)
     return (y.reshape(B, H, S, N).transpose(1, 2),
             s_last.reshape(B, H, N, N))
@@ -121,10 +126,11 @@ def _time_mix_heads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     H, N = D // HEAD_SIZE, HEAD_SIZE
     g = torch.nn.functional.silu(g.float()).to(r.dtype)
     decay_raw = w.float() + decay_bias
-    w = torch.exp(-torch.exp(decay_raw)).reshape(B, S, H, N)  # in (0,1)
+    # log decays; the decays exp(-exp(decay_raw)) lie in (0, 1)
+    log_w = (-torch.exp(decay_raw)).reshape(B, S, H, N)
     y, s_last = _wkv(r.reshape(B, S, H, N).float(),
                      k.reshape(B, S, H, N).float(),
-                     v.reshape(B, S, H, N).float(), w, bonus_u, s0,
+                     v.reshape(B, S, H, N).float(), log_w, bonus_u, s0,
                      use_kernels)
     # per-head group norm (population variance, as jnp.var)
     mean = y.mean(-1, keepdim=True)

@@ -74,10 +74,10 @@ def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Neutralize the padded embedding rows (softmax- and argmax-safe)."""
     if cfg.padded_vocab == cfg.vocab:
         return logits
+    # a fill value, not a tensor made from a Python number: that would be
+    # a host-to-device copy, which a CUDA graph's capture refuses
     ids = torch.arange(logits.shape[-1], device=logits.device)
-    return torch.where(ids < cfg.vocab, logits,
-                       torch.tensor(-1e30, dtype=logits.dtype,
-                                    device=logits.device))
+    return logits.masked_fill(ids >= cfg.vocab, -1e30)
 
 
 def layer_windows(cfg: ModelConfig) -> List[int]:

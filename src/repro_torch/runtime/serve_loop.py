@@ -13,6 +13,18 @@ decode takes no patches.  The encoder-decoder (whisper-medium) does not
 serve: the reference's ``ServeEngine`` has no enc-dec path either
 (``require_servable``).
 
+The reference jits the device step, argmax included; on a CUDA device the
+port captures it in a CUDA graph (``cuda_graph``, the default there) at
+the first tick and replays that graph once a tick: embedding, every
+layer, the logits and the argmax as one launch from the host.  Its inputs
+are two device buffers that live as long as the engine (tokens and
+per-slot cursors), filled from one pinned host buffer by one copy a tick;
+its output is a static device tensor read back by the tick's one
+``.cpu()``.  The cache is written in place, so the graph holds its
+storage; the slot wipe and the plan hooks act on that storage between
+replays.  The eager engine (``cuda_graph=False``) runs the same step op
+by op from the same buffers.
+
 The planner hooks are the reference's: ``decode_graph`` lowers the
 decode step to a planner graph, ``ServeEngine(plan_request=,
 plan_store=)`` attaches its accelerator plan (store first, then the
@@ -25,7 +37,7 @@ from __future__ import annotations
 import dataclasses
 import warnings
 from collections import deque
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +77,15 @@ def decode_graph(cfg: ModelConfig) -> Graph:
     return Graph(f"{cfg.name}-decode", ops)
 
 
+def _clone(tree):
+    """A copy of a cache's tree of tensors."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree.clone()
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -87,27 +108,51 @@ def require_servable(cfg: ModelConfig) -> None:
             "and whisper_decode_step instead")
 
 
+#: eager device steps run, on a side stream and on a copy of the cache,
+#: before a CUDA graph is captured (they load the kernel libraries and
+#: make the one-time attribute and occupancy calls outside the capture)
+GRAPH_WARMUP_STEPS = 1
+
+
 class ServeEngine:
     """Continuous-batching engine over a fixed slot pool, on ``device``
     (``cuda`` unless the caller passes another).  ``params`` must already
-    lie on that device."""
+    lie on that device.  ``cuda_graph``: replay the device step as one
+    captured CUDA graph a tick (default: on a CUDA device); True on any
+    other device raises, and a capture that fails raises."""
 
     def __init__(self, params, cfg: ModelConfig, batch_slots: int,
                  max_len: int, device: DeviceLike = None,
                  plan_request: Optional[PlanRequest] = None,
                  plan_store: Optional[PlanStore] = None,
                  plan_hw: Optional[HWConfig] = None,
-                 plan_topology: Topology = Topology.AMP):
+                 plan_topology: Topology = Topology.AMP,
+                 cuda_graph: Optional[bool] = None):
         require_servable(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params lie on {params['embed'].device}, the "
                              f"engine runs on {self.device}")
+        on_cuda = self.device.type == "cuda"
+        self.cuda_graph = on_cuda if cuda_graph is None else bool(cuda_graph)
+        if self.cuda_graph and not on_cuda:
+            raise ValueError(f"cuda_graph=True needs a CUDA device, not "
+                             f"{self.device}")
         self.params = params
         self.cfg = cfg
         self.B = batch_slots
         self.max_len = max_len
         self.cache = init_cache(cfg, batch_slots, max_len, device=self.device)
+        # the step's inputs, rows (tokens, cursors), filled by one copy a
+        # tick from a host buffer (pinned on the card), and its output
+        self._host_feed = torch.zeros((2, batch_slots), dtype=torch.int64,
+                                      pin_memory=on_cuda)
+        self._feed = torch.zeros((2, batch_slots), dtype=torch.int64,
+                                 device=self.device)
+        self._next: Optional[torch.Tensor] = None
+        self.logits: Optional[torch.Tensor] = None    # last tick's, (B, V)
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self.graph_replays = 0
         self.queue: Deque[Request] = deque()
         self.active: List[Optional[Request]] = [None] * batch_slots
         # per-slot cursors
@@ -155,11 +200,31 @@ class ServeEngine:
 
     # -- device program ------------------------------------------------------
     @torch.inference_mode()
-    def _device_step(self, tokens: torch.Tensor, index: torch.Tensor
-                     ) -> torch.Tensor:
-        logits, self.cache = decode_step(self.params, self.cfg, tokens,
-                                         self.cache, index)
-        return torch.argmax(logits[:, -1, :], dim=-1)
+    def _device_step(self, cache) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One decode step of every slot from the feed buffer, ``cache``
+        written in place: (last logits (B, V), argmax (B,))."""
+        tokens, index = self._feed[0][:, None], self._feed[1]
+        logits, _ = decode_step(self.params, self.cfg, tokens, cache, index)
+        logits = logits[:, -1, :]
+        return logits, torch.argmax(logits, dim=-1)
+
+    def _capture(self) -> None:
+        """Capture ``_device_step`` on the engine's cache in a CUDA graph
+        with a private memory pool (freed with the engine), after
+        ``GRAPH_WARMUP_STEPS`` eager steps on a side stream: those run on
+        a copy of the cache, since a step advances recurrent states."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            scratch = _clone(self.cache)
+            for _ in range(GRAPH_WARMUP_STEPS):
+                self._device_step(scratch)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        del scratch
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.logits, self._next = self._device_step(self.cache)
+        self._graph = graph
 
     # -- scheduling ----------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -203,10 +268,19 @@ class ServeEngine:
 
         # each slot decodes at its own cursor: the per-slot index vector
         # keeps a refilled slot's writes and causal mask at *its* fill
-        # level, not the pool-wide maximum
-        index = torch.from_numpy(self.pos.copy()).to(self.device)
-        tokens = torch.from_numpy(feed).to(self.device)
-        nxt = self._device_step(tokens, index).cpu().numpy()
+        # level, not the pool-wide maximum.  The host buffer is free
+        # again: the last tick ended in a sync.
+        self._host_feed[0] = torch.from_numpy(feed[:, 0])
+        self._host_feed[1] = torch.from_numpy(self.pos)
+        self._feed.copy_(self._host_feed, non_blocking=True)
+        if self.cuda_graph:
+            if self._graph is None:
+                self._capture()
+            self._graph.replay()
+            self.graph_replays += 1
+        else:
+            self.logits, self._next = self._device_step(self.cache)
+        nxt = self._next.cpu().numpy()
 
         finished = []
         for slot, req in enumerate(self.active):

@@ -17,10 +17,11 @@ from repro_torch.kernels.fused_mlp import (BF, CLUSTER, CLUSTER_BT,
                                            CLUSTER_DC_TILES,
                                            CLUSTER_START_CHUNKS,
                                            PREFILL_MIN_T, ROWS_MIN_COLS,
-                                           WGMMA_MAX_DC, choose_regime,
-                                           cluster_dc, fused_mlp,
-                                           fused_mlp_ref, mlp_block,
-                                           pad_for_tma, rows_splits, split_f,
+                                           WGMMA_CLUSTERS, WGMMA_MAX_DC,
+                                           _plan, choose_regime, cluster_dc,
+                                           fused_mlp, fused_mlp_ref,
+                                           mlp_block, pad_for_tma,
+                                           rows_splits, split_f, wgmma_ctas,
                                            wgmma_dc)
 
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -121,15 +122,68 @@ def test_choose_regime(T, D, bf16, regime, tile):
     assert choose_regime(T, D, bf16) == (regime, tile)
 
 
-@pytest.mark.parametrize("T,D,bf16", [(512, 5128, True),
-                                      (PREFILL_MIN_T, 8192, True)])
-def test_choose_regime_refuses_d_wider_than_the_wgmma_slices(T, D, bf16):
+@pytest.mark.parametrize("T,D,ctas,dc", [
+    (512, 5128, 16, 384), (PREFILL_MIN_T, 8192, 16, 512),
+    (512, 10240, 16, 640), (512, 10248, None, None)])
+def test_choose_regime_refuses_d_wider_than_the_wgmma_slices(T, D, ctas,
+                                                             dc):
     """A bf16 prefill that no 8-CTA cluster of 640-column slices holds
-    raises: it never falls back to the rows regime."""
-    with pytest.raises(ValueError, match="wgmma"):
-        choose_regime(T, D, bf16)
-    assert choose_regime(4, D, bf16) == ("rows", 0)
+    runs 16-CTA clusters (D = 5128 and 8192); only past 16 slices of 640
+    columns (D > 10240) does it raise, and it never falls back to the rows
+    regime.  Decode and float32 keep the rows regime."""
+    if ctas is None:
+        with pytest.raises(ValueError, match="wgmma"):
+            choose_regime(T, D, True)
+    else:
+        assert wgmma_ctas(D) == ctas
+        assert choose_regime(T, D, True) == ("wgmma", dc)
+        assert wgmma_dc(D, CLUSTER) > WGMMA_MAX_DC
+    assert choose_regime(4, D, True) == ("rows", 0)
     assert choose_regime(T, D, False) == ("rows", 0)
+
+
+@pytest.mark.parametrize("D,ctas", [(2561, 8), (5120, 8), (5121, 16),
+                                    (5128, 16), (8192, 16), (10240, 16)])
+def test_wgmma_ctas_keeps_8_up_to_d_5120(D, ctas):
+    """8-CTA clusters wherever their slices are at most WGMMA_MAX_DC wide
+    (every arch of the zoo, D <= 5120, keeps its regime and its bits),
+    16 past that."""
+    assert WGMMA_CLUSTERS == (8, 16)
+    assert wgmma_ctas(D) == ctas
+    assert wgmma_dc(D, ctas) <= WGMMA_MAX_DC
+
+
+@pytest.mark.parametrize("T,D,F,ctas", [(512, 5128, 13824, 16),
+                                        (512, 8192, 28672, 16),
+                                        (512, 5120, 27392, 8),
+                                        (4, 12288, 64, None)])
+def test_plan_passes_the_cluster_size_of_a_wgmma_call(T, D, F, ctas,
+                                                      monkeypatch):
+    """``_plan`` hands the ``wgmma`` launch its cluster's CTAs as the tile
+    and sizes the F splits by the clusters of that size that fit (the
+    occupancy query, stubbed here: 7 clusters of 16, 16 of 8); a decode
+    call wider than any cluster takes the rows regime and asks for none."""
+    import repro_torch.kernels.fused_mlp as fm
+    asked = []
+
+    def slots(index, regime, tile):
+        asked.append((regime, tile))
+        return {16: 7, 8: 16}[tile]
+
+    monkeypatch.setattr(fm, "_cluster_slots", slots)
+    monkeypatch.setattr(fm, "_rows_slots", lambda index, dtype, D: 264)
+    _plan.cache_clear()
+    try:
+        regime, tile, n_split, per, ws = _plan(0, T, D, F, torch.bfloat16)
+    finally:
+        _plan.cache_clear()
+    if ctas is None:
+        assert (regime, tile, per) == (0, 0, 0) and asked == []
+        return
+    assert (regime, tile) == (1, ctas) and asked == [(1, ctas)]
+    assert (n_split, per) == split_f(-(-T // CLUSTER_BT), F,
+                                     {16: 7, 8: 16}[ctas])
+    assert ws == (0 if n_split == 1 else n_split * T * D)
 
 
 @pytest.mark.parametrize("D,dc", [(8, 8), (200, 32), (2048, 256),
@@ -145,21 +199,22 @@ def test_cluster_slices_cover_d_on_16_byte_boundaries(D, dc):
 @pytest.mark.parametrize("D,dc", [(8, 64), (200, 64), (1000, 128),
                                   (2048, 256), (2560, 320), (2561, 384),
                                   (2568, 384), (4096, 512), (5120, 640),
-                                  (5128, 704)])
+                                  (5128, 704), (8192, 1024)])
 def test_wgmma_slices_cover_d_on_16_byte_boundaries(D, dc):
     """Each CTA's slice of the wgmma regime starts on a 64-column
     (128-byte) boundary, the slices cover D, and none is wider than it
-    must be; a slice wider than WGMMA_MAX_DC is refused."""
+    must be; where the 8-CTA slice is wider than WGMMA_MAX_DC the call
+    takes 16-CTA clusters, whose slices do the same."""
     assert wgmma_dc(D) == dc
-    assert dc % 64 == 0 and dc * 2 % 16 == 0
-    assert CLUSTER * dc >= D > CLUSTER * (dc - 64)
-    starts = [c * dc for c in range(CLUSTER)]
-    assert all(s * 2 % 16 == 0 for s in starts)
+    for ctas in (CLUSTER, 16):
+        w = wgmma_dc(D, ctas)
+        assert w % 64 == 0 and w * 2 % 16 == 0
+        assert ctas * w >= D > ctas * (w - 64)
+        assert all(c * w * 2 % 16 == 0 for c in range(ctas))
     if dc <= WGMMA_MAX_DC:
         assert choose_regime(256, D, True) == ("wgmma", dc)
     else:
-        with pytest.raises(ValueError):
-            choose_regime(256, D, True)
+        assert choose_regime(256, D, True) == ("wgmma", wgmma_dc(D, 16))
 
 
 @pytest.mark.parametrize("D,F", [(200, 300), (203, 77), (2600, 300),

@@ -54,7 +54,9 @@ def _inputs(T, D, F, dtype, seed=0):
     (512, 5120, 17920),
     # D > 2560 ragged: T, D and F no multiples of the tiles, F no multiple
     # of 8 (the wrapper pads it for TMA)
-    (70, 2600, 300)])
+    (70, 2600, 300),
+    # D > 5120: 16-CTA clusters of the wgmma regime
+    (512, 5128, 13824), (512, 8192, 28672)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_mlp_kernel_matches_plain(T, D, F, dtype):
     _need_card()
@@ -71,7 +73,8 @@ def test_fused_mlp_kernel_matches_plain(T, D, F, dtype):
 
 @pytest.mark.parametrize("T,D,F", [(4, 2048, 11008), (256, 2560, 10240),
                                    (65, 200, 300), (512, 5120, 17920),
-                                   (70, 2600, 300), (512, 5120, 27392)])
+                                   (70, 2600, 300), (512, 5120, 27392),
+                                   (512, 5128, 13824), (512, 8192, 28672)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_mlp_is_bitwise_repeatable(T, D, F, dtype):
     """No atomics: every regime sums in a fixed order, so two calls on the
@@ -86,7 +89,8 @@ def test_fused_mlp_is_bitwise_repeatable(T, D, F, dtype):
 
 @pytest.mark.parametrize("T,D,F,regime", [(64, 2048, 11008, "cluster"),
                                           (512, 2560, 10240, "wgmma"),
-                                          (512, 5120, 27392, "wgmma")])
+                                          (512, 5120, 27392, "wgmma"),
+                                          (512, 8192, 28672, "wgmma")])
 def test_fused_mlp_prefill_regime_counts_one_launch(T, D, F, regime):
     """The bf16 prefill runs its regime's cluster kernel and, with F split
     over clusters, the ordered reduction: every CUDA function the call

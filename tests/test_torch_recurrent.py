@@ -193,7 +193,7 @@ def test_wkv6_with_s0_matches_wkv_scan(use_kernels):
     s0 = rng.standard_normal((B, H, N, N), np.float32) * 0.2
     ye, se = jax_rwkv6._wkv_scan(*(jnp.asarray(a) for a in
                                    (r, k, v, w, u, s0)))
-    y, s = rwkv6._wkv(*map(_t, (r, k, v, w, u, s0)), use_kernels)
+    y, s = rwkv6._wkv(*map(_t, (r, k, v, np.log(w), u, s0)), use_kernels)
     assert y.shape == (B, S, H, N) and s.shape == (B, H, N, N)
     np.testing.assert_allclose(_np(y), _np(ye), atol=_WKV_TOL, rtol=_WKV_TOL)
     np.testing.assert_allclose(_np(s), _np(se), atol=_WKV_TOL, rtol=_WKV_TOL)

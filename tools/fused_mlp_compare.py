@@ -19,12 +19,15 @@ of that tree in the named regime of its ``choose_regime`` (a ``wgmma``
 D-slice is ``wgmma_dc(D)``, a ``cluster`` tile the smallest that holds
 ``cluster_dc(D)``), to time one regime at another's shapes.  One JSON
 object per (tree, shape) goes to standard output and, with ``--out``, to
-a file; a subprocess that fails or runs past ``--timeout`` seconds fails
-the run.
+a file; each row carries a digest of the kernel's output bits, and a
+last line says for each shape whether every tree gave the same bits.  A
+subprocess that fails or runs past ``--timeout`` seconds fails the
+run.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import subprocess
@@ -130,6 +133,9 @@ def worker(tree: Path, shapes, regime) -> None:
                "regime": fm.choose_regime(T, D, True)[0],
                "max_abs_err": float(diff.max()), "ok": ok,
                "repeatable": bool(torch.equal(out, again)),
+               "digest": hashlib.sha256(
+                   out.view(torch.int16).cpu().numpy().tobytes()
+               ).hexdigest()[:16],
                "device_ms": _device_ms(call), "ms": _events_ms(call, iters),
                "library_ms": _events_ms(lib, iters),
                "bound_ms": max(t_bytes, t_ops),
@@ -183,9 +189,15 @@ def main() -> int:
     failed += [f"{r['tree']} {r['T']},{r['D']},{r['F']}: not within "
                f"{KERNEL_TOL} or not repeatable"
                for r in rows if not (r["ok"] and r["repeatable"])]
+    digests = {}
+    for r in rows:
+        digests.setdefault((r["T"], r["D"], r["F"]), set()).add(r["digest"])
+    same = {",".join(map(str, k)): len(v) == 1 for k, v in digests.items()}
+    print(json.dumps({"same_bits_across_trees": same}), flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": smi, "rows": rows,
+                                        "same_bits": same,
                                         "failed": failed}, indent=1))
     for f in failed:
         print(f"FAIL {f}", file=sys.stderr)
