@@ -1572,11 +1572,12 @@ def _check_events(label: str, seen: dict, want: dict) -> None:
 def _wrapper_launches(engine, per_tick: dict) -> dict:
     """What the kernels' wrappers count in an engine's run: once per
     layer and tick eagerly; with the CUDA graph, once per layer in each
-    warm-up step and in the capture, whatever the ticks (replays launch
-    no wrapper)."""
+    warm-up step and in each capture (the plain and the instrumented
+    graph), whatever the ticks (replays launch no wrapper)."""
     from repro_torch.runtime.serve_loop import GRAPH_WARMUP_STEPS
     if engine.cuda_graph:
-        steps = GRAPH_WARMUP_STEPS + 1 if engine.ticks else 0
+        steps = (GRAPH_WARMUP_STEPS + engine.log.captures if engine.ticks
+                 else 0)
     else:
         steps = engine.ticks
     return {name: n * steps for name, n in per_tick.items()}

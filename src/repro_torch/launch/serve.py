@@ -193,6 +193,8 @@ def serve_one(args, device: torch.device):
           f"{cfg.name} on {device}, kv_quant={cfg.kv_quant}, "
           f"use_kernels={cfg.use_kernels}, "
           f"cuda_graph={engine.cuda_graph})")
+    print("engine: " + " ".join(f"{k}={v}" for k, v in
+                                engine.log.counters().items()))
     if engine.plan is not None:
         print(f"decode plan: source={engine.plan_source} "
               f"{engine.plan.latency_cycles:.3e} cycles/token, "

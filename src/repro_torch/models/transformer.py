@@ -44,6 +44,7 @@ from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.hints import hint, local_call, write_slice
+from repro_torch.runtime.telemetry import mark
 
 from .common import (DeviceLike, ModelConfig, Params, cross_entropy_loss,
                      dense_init, resolve_device, rms_norm,
@@ -300,13 +301,16 @@ def _uniform_layer(cfg: ModelConfig, x: torch.Tensor, layer_p: Params,
                    ) -> Tuple[torch.Tensor, Aux]:
     """One pre-norm decoder layer: (x, aux), aux the MoE load-balance
     loss (0.0 without experts); the cache (if any) updates in place.
-    ``mrope_positions`` (vlm forward) rotates q and k by M-RoPE."""
+    ``mrope_positions`` (vlm forward) rotates q and k by M-RoPE.  Marks
+    the ``mixer`` and ``ffn`` halves (``runtime.telemetry``)."""
+    mark("mixer")
     x = hint(x, "batch", None, None)
     h = rms_norm(x, layer_p["ln1"], cfg.norm_eps)
     if cfg.arch_kind == "rwkv":
         o, _ = time_mix(layer_p["tmix"], h, cfg,
                         state=cache["tmix"] if cache is not None else None)
         x = x + _rows(o)
+        mark("ffn")
         h2 = rms_norm(x, layer_p["ln2"], cfg.norm_eps)
         o2, _ = channel_mix(layer_p["cmix"], h2,
                             state=cache["cmix"] if cache is not None
@@ -322,6 +326,7 @@ def _uniform_layer(cfg: ModelConfig, x: torch.Tensor, layer_p: Params,
                             window=window, cache=c_in,
                             cache_index=cache_index,
                             mrope_positions=mrope_positions))
+    mark("ffn")
     h2 = rms_norm(x, layer_p["ln2"], cfg.norm_eps)
     if cfg.n_experts:
         o2, aux = moe_ffn(layer_p["moe"], h2, cfg)
@@ -335,7 +340,9 @@ def _hybrid_layer(cfg: ModelConfig, x: torch.Tensor, layer_p: Params,
     """One Griffin layer (local attention or recurrent block, then the
     MLP); the cache (if any) updates in place.  The reference calls
     ``swiglu`` here without the config, so the hybrid MLP never takes
-    ``fused_mlp``; the port does the same."""
+    ``fused_mlp``; the port does the same.  Marks the ``mixer`` and
+    ``ffn`` halves."""
+    mark("mixer")
     h = rms_norm(x, layer_p["ln1"], cfg.norm_eps)
     if "attn" in layer_p:
         o = attention(layer_p["attn"], h, cfg, positions,
@@ -347,6 +354,7 @@ def _hybrid_layer(cfg: ModelConfig, x: torch.Tensor, layer_p: Params,
         state = (cache["conv"], cache["h"]) if cache is not None else None
         o, _ = recurrent_block(layer_p["rec"], h, cfg, state=state)
     x = x + _rows(o)
+    mark("ffn")
     h2 = rms_norm(x, layer_p["ln2"], cfg.norm_eps)
     return x + _rows(swiglu(layer_p["mlp"], h2))
 
@@ -522,9 +530,13 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     independently.  The cache is written in place and returned.
 
     vlm: text only, with plain RoPE at the cache index, as the
-    reference's decode (it takes no patches and passes no M-RoPE ids)."""
+    reference's decode (it takes no patches and passes no M-RoPE ids).
+
+    Marks its sections (``runtime.telemetry.SECTIONS``): ``embed``, each
+    layer's ``mixer`` and ``ffn``, ``head``."""
     _require_decoder(cfg)
     B = tokens.shape[0]
+    mark("embed")
     x = _embed(params["embed"], tokens)
     if isinstance(index, torch.Tensor) and index.ndim == 1:
         index = index.to(x.device)
@@ -541,6 +553,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         x, _ = fn(x, positions, c, index)
         if cfg.arch_kind != "hybrid":
             _write_layer(cache, l, c)
+    mark("head")
     return _logits(params, cfg, x), cache
 
 

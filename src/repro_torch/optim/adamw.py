@@ -29,6 +29,7 @@ from typing import Any, Iterator, NamedTuple, Tuple, Union
 import torch
 from torch.distributed.tensor import DTensor, Partial
 
+from repro_torch.runtime.telemetry import span
 from repro_torch.tree import leaves, tree_map
 
 #: elements of one update chunk (64 MiB of float32)
@@ -120,8 +121,7 @@ def apply_updates(cfg: AdamWConfig, params: Any, grads: Any,
     updated in place and returned, with the new step count.  DTensor
     leaves update their local shards; a gradient must have its
     parameter's placements."""
-    with torch.profiler.record_function("adamw.apply_updates"), \
-            torch.no_grad():
+    with span("adamw.apply_updates"), torch.no_grad():
         step = state.step + 1
         scale = torch.clamp(cfg.clip_norm / (global_norm(grads) + 1e-9),
                             max=1.0)

@@ -25,6 +25,17 @@ storage; the slot wipe and the plan hooks act on that storage between
 replays.  The eager engine (``cuda_graph=False``) runs the same step op
 by op from the same buffers.
 
+Tracing (``runtime.telemetry``): a tick runs inside the host spans
+``serve.step`` > ``serve.refill``, ``serve.feed``, ``serve.launch``,
+``serve.readback``, ``serve.marks``, ``serve.book``, which only a
+running profiler records.  Beside the plain graph the engine captures an
+instrumented one, with a CUDA event at each decoder section's mark, in
+the plain graph's memory pool; a tick replays it only while a profiler
+runs (every other tick there), and books each section's device ms from
+its events while the next tick's step runs.  Every engine keeps a
+``telemetry.ServeLog`` (``log``): counters, a row a tick, a row a
+request; ``stats()`` includes the counters.
+
 The planner hooks are the reference's: ``decode_graph`` lowers the
 decode step to a planner graph, ``ServeEngine(plan_request=,
 plan_store=)`` attaches its accelerator plan (store first, then the
@@ -35,6 +46,7 @@ the torch engine plans where its ``device`` says (``None``: ``cuda``).
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from collections import deque
 from typing import Deque, Dict, List, Optional, Tuple
@@ -48,6 +60,8 @@ from repro_torch.core import (Graph, HWConfig, PlanAPIDeprecationWarning,
 from repro_torch.models.common import DeviceLike, ModelConfig, resolve_device
 from repro_torch.models.transformer import (decode_step, init_cache,
                                             zero_cache_slot)
+from repro_torch.runtime import telemetry
+from repro_torch.runtime.telemetry import span
 
 
 def decode_graph(cfg: ModelConfig) -> Graph:
@@ -151,8 +165,15 @@ class ServeEngine:
                                  device=self.device)
         self._next: Optional[torch.Tensor] = None
         self.logits: Optional[torch.Tensor] = None    # last tick's, (B, V)
+        # the plain and the instrumented graph, each with its outputs
+        # (logits, argmax); the section marks' (name, event) in order
         self._graph: Optional[torch.cuda.CUDAGraph] = None
-        self.graph_replays = 0
+        self._igraph: Optional[torch.cuda.CUDAGraph] = None
+        self._out: Tuple[torch.Tensor, ...] = ()
+        self._iout: Tuple[torch.Tensor, ...] = ()
+        self._marks: List[Tuple[str, torch.cuda.Event]] = []
+        self._mark_at = 0
+        self.log = telemetry.new_serve_log()
         self.queue: Deque[Request] = deque()
         self.active: List[Optional[Request]] = [None] * batch_slots
         # per-slot cursors
@@ -206,28 +227,60 @@ class ServeEngine:
         tokens, index = self._feed[0][:, None], self._feed[1]
         logits, _ = decode_step(self.params, self.cfg, tokens, cache, index)
         logits = logits[:, -1, :]
-        return logits, torch.argmax(logits, dim=-1)
+        nxt = torch.argmax(logits, dim=-1)
+        telemetry.mark(telemetry.END)
+        return logits, nxt
+
+    def _mark(self, section: str) -> None:
+        """The section marks' sink: records the next of ``_marks``'
+        events on the current stream (a new event the first time round,
+        outside any capture; a captured step holds an event node)."""
+        i = self._mark_at
+        if i == len(self._marks):
+            self._marks.append(
+                (section, torch.cuda.Event(enable_timing=True,
+                                           external=True)))
+        elif self._marks[i][0] != section:
+            raise RuntimeError(f"mark {i} is {section!r}, was "
+                               f"{self._marks[i][0]!r}")
+        self._marks[i][1].record()
+        self._mark_at = i + 1
+
+    def _marked_step(self, cache) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``_device_step`` with an event at each mark."""
+        self._mark_at = 0
+        with telemetry.marking(self._mark):
+            return self._device_step(cache)
 
     def _capture(self) -> None:
         """Capture ``_device_step`` on the engine's cache in a CUDA graph
-        with a private memory pool (freed with the engine), after
-        ``GRAPH_WARMUP_STEPS`` eager steps on a side stream: those run on
-        a copy of the cache, since a step advances recurrent states."""
+        with a private memory pool (freed with the engine), and the
+        instrumented step (``_marked_step``) in a second graph in the same
+        pool, after ``GRAPH_WARMUP_STEPS`` eager marked steps on a side
+        stream: those run on a copy of the cache, since a step advances
+        recurrent states.  The plain graph's outputs stay alive, so the
+        second capture never reuses their memory; its own outputs may
+        lie where the plain graph keeps its temporaries, and are read
+        only right after its own replay."""
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             scratch = _clone(self.cache)
             for _ in range(GRAPH_WARMUP_STEPS):
-                self._device_step(scratch)
+                self._marked_step(scratch)
         torch.cuda.current_stream(self.device).wait_stream(side)
         del scratch
-        graph = torch.cuda.CUDAGraph()
+        graph, igraph = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            self.logits, self._next = self._device_step(self.cache)
-        self._graph = graph
+            self._out = self._device_step(self.cache)
+        with torch.cuda.graph(igraph, pool=graph.pool()):
+            self._iout = self._marked_step(self.cache)
+        self._graph, self._igraph = graph, igraph
+        self.log.captures += 2
 
     # -- scheduling ----------------------------------------------------------
     def submit(self, req: Request) -> None:
+        self.log.submitted(req.rid, time.perf_counter(), len(req.prompt))
         self.queue.append(req)
 
     def _refill(self) -> None:
@@ -242,62 +295,113 @@ class ServeEngine:
                 # request; ROADMAP.md Queue 3)
                 if self.ticks:
                     self.cache = zero_cache_slot(self.cfg, self.cache, slot)
+                    self.log.wiped += 1
                 self.active[slot] = req
                 self.remaining_prompt[slot] = list(req.prompt)
                 self.pos[slot] = 0
                 self.generated[slot] = 0
+                self.log.admit(req.rid, time.perf_counter())
+
+    @property
+    def graph_replays(self) -> int:
+        """Replays of the captured step, plain and instrumented."""
+        return self.log.replays + self.log.instrumented_replays
 
     def step(self) -> List[Request]:
         """One engine tick: feed each slot its next token (prompt token if
         still prefilling, else the model's own last sample); returns any
         requests completed this tick."""
-        self._refill()
+        start = time.perf_counter()
+        with span("serve.step"):
+            return self._step(start)
+
+    def _step(self, start: float) -> List[Request]:
+        log = self.log
+        with span("serve.refill"):
+            self._refill()
         self.ticks += 1
-        feed = np.zeros((self.B, 1), np.int64)
-        for slot, req in enumerate(self.active):
-            if req is None:
-                continue
-            if self.remaining_prompt[slot]:
-                feed[slot, 0] = self.remaining_prompt[slot].pop(0)
-            elif req.output:
-                feed[slot, 0] = req.output[-1]
+        with span("serve.feed"):
+            feed = np.zeros((self.B, 1), np.int64)
+            live = []
+            prompt = 0
+            for slot, req in enumerate(self.active):
+                if req is None:
+                    continue
+                live.append(slot)
+                if self.remaining_prompt[slot]:
+                    feed[slot, 0] = self.remaining_prompt[slot].pop(0)
+                    prompt += 1
+                elif req.output:
+                    feed[slot, 0] = req.output[-1]
+                else:
+                    # empty prompt: nothing to condition on — feed token 0
+                    # (BOS convention) so generation starts from position 0
+                    feed[slot, 0] = req.prompt[-1] if req.prompt else 0
+            output = len(live) - prompt
+            positions = int(self.pos[live].sum())
+
+            # each slot decodes at its own cursor: the per-slot index
+            # vector keeps a refilled slot's writes and causal mask at
+            # *its* fill level, not the pool-wide maximum.  The host
+            # buffer is free again: the last tick ended in a sync.
+            self._host_feed[0] = torch.from_numpy(feed[:, 0])
+            self._host_feed[1] = torch.from_numpy(self.pos)
+            self._feed.copy_(self._host_feed, non_blocking=True)
+        # section timings only under a profiler and on the card, every
+        # other tick: a timed tick's events are read in the next tick,
+        # while its step runs, and only then recorded again
+        timed = (telemetry.profiling() and self.device.type == "cuda"
+                 and not log.pending)
+        with span("serve.launch"):
+            if self.cuda_graph:
+                if self._graph is None:
+                    self._capture()
+                if timed:
+                    self._igraph.replay()
+                    log.instrumented_replays += 1
+                    self.logits, self._next = self._iout
+                else:
+                    self._graph.replay()
+                    log.replays += 1
+                    self.logits, self._next = self._out
+            elif timed:
+                self.logits, self._next = self._marked_step(self.cache)
             else:
-                # empty prompt: nothing to condition on — feed token 0
-                # (BOS convention) so generation starts from position 0
-                feed[slot, 0] = req.prompt[-1] if req.prompt else 0
+                self.logits, self._next = self._device_step(self.cache)
+        if log.pending:
+            with span("serve.marks"):
+                log.flush()
+        with span("serve.readback"):
+            nxt = self._next.cpu().numpy()
 
-        # each slot decodes at its own cursor: the per-slot index vector
-        # keeps a refilled slot's writes and causal mask at *its* fill
-        # level, not the pool-wide maximum.  The host buffer is free
-        # again: the last tick ended in a sync.
-        self._host_feed[0] = torch.from_numpy(feed[:, 0])
-        self._host_feed[1] = torch.from_numpy(self.pos)
-        self._feed.copy_(self._host_feed, non_blocking=True)
-        if self.cuda_graph:
-            if self._graph is None:
-                self._capture()
-            self._graph.replay()
-            self.graph_replays += 1
-        else:
-            self.logits, self._next = self._device_step(self.cache)
-        nxt = self._next.cpu().numpy()
-
-        finished = []
-        for slot, req in enumerate(self.active):
-            if req is None:
-                continue
-            self.pos[slot] += 1
-            if self.remaining_prompt[slot]:
-                continue                     # still prefilling
-            tok = int(nxt[slot])
-            req.output.append(tok)
-            self.generated[slot] += 1
-            hit_eos = req.eos_id is not None and tok == req.eos_id
-            if (self.generated[slot] >= req.max_new_tokens or hit_eos
-                    or self.pos[slot] >= self.max_len - 1):
-                req.done = True
-                finished.append(req)
-                self.active[slot] = None
+        with span("serve.book"):
+            finished, firsts = [], []
+            for slot, req in enumerate(self.active):
+                if req is None:
+                    continue
+                self.pos[slot] += 1
+                if self.remaining_prompt[slot]:
+                    continue                     # still prefilling
+                tok = int(nxt[slot])
+                req.output.append(tok)
+                if len(req.output) == 1:
+                    firsts.append(req.rid)
+                self.generated[slot] += 1
+                hit_eos = req.eos_id is not None and tok == req.eos_id
+                if (self.generated[slot] >= req.max_new_tokens or hit_eos
+                        or self.pos[slot] >= self.max_len - 1):
+                    req.done = True
+                    finished.append(req)
+                    self.active[slot] = None
+            end = time.perf_counter()
+            for rid in firsts:
+                log.first_token(rid, end)
+            for req in finished:
+                log.finish(req.rid, end, len(req.output))
+            row = log.tick(start, end, prompt, output,
+                           self.B - prompt - output, positions)
+            if timed:
+                log.pend(row, self._marks)
         return finished
 
     def run(self, max_ticks: int = 10_000) -> List[Request]:
@@ -325,6 +429,8 @@ class ServeEngine:
             "active": float(sum(r is not None for r in self.active)),
             "truncated": float(self.truncated),
         }
+        out.update((k, float(v)) for k, v in self.log.counters().items()
+                   if k != "ticks")
         if self.plan is not None:
             cyc = self.plan.latency_cycles
             out["planned_cycles_per_token"] = cyc

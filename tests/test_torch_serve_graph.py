@@ -150,11 +150,12 @@ def test_graph_engine_tokens_are_the_eager_bits(arch):
     assert graph.ticks == eager.ticks == graph.graph_replays
     assert torch.equal(graph.logits, eager.logits)
     # a wrapper counts where it launches: the warm-up steps and the
-    # capture, not the replays
+    # captures (the plain and the instrumented graph), not the replays
     from repro_torch.kernels.fused_mlp import fused_mlp
     if cfg.arch_kind == "dense":
         before = fused_mlp.launches
         again = ServeEngine(params, cfg, batch_slots=2, max_len=32)
         _serve(again)
+        assert again.log.captures == 2
         assert (fused_mlp.launches - before
-                == (GRAPH_WARMUP_STEPS + 1) * cfg.n_layers)
+                == (GRAPH_WARMUP_STEPS + 2) * cfg.n_layers)
