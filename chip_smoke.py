@@ -10,7 +10,8 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
 1. device: requires CUDA; prints versions, the card's name and power
    limit, and turns TF32 off for float32 products;
 2. build: compiles every kernel (fused_mlp, maxplus_scan, price_rows,
-   rwkv6_scan, rglru_scan, flash_attention) with ``nvcc``, one process
+   rwkv6_scan, rglru_scan, flash_attention, decode_attention) with
+   ``nvcc``, one process
    per source, all started together, and prints each CUDA function's
    registers and spills;
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch
@@ -42,6 +43,18 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    the reference suite's tolerance of ``rglru_ref``), the same
    repeatability, float64 and step-kernel columns; ``maxplus_chunked``
    at the simulator's row shapes and past one 1024-step tile;
+   ``decode_attention`` at the two benchmark cells' serving shapes
+   (qwen2.5-3b 64 x 2048, 16 / 2 heads; phi3-medium-14b 32 x 2048,
+   40 / 10) at a mean fill of 338 positions and a full one of 2047, and
+   at gemma3-4b's, recurrentgemma-2b's (its ring wrapped) and whisper's
+   decode shapes, and at the MoE archs' served shapes (4 x 128; 16 / 8
+   heads at hd 64, 16 / 16 at hd 128), bf16 and float32: against the
+   plain version (bf16 also element by element, in bf16 ulps, against
+   its float32 computation, beside two planted faults that must read
+   above the limit), twice for the same bits, device ms by CUDA events
+   and the profiler beside the bound (the admitted K and V bytes), the
+   plain version (``_sdpa``'s computation) and
+   ``scaled_dot_product_attention``;
 4. models, one on the card at a time, each at full width with random
    bf16 weights from a seed, each built by ``init_model`` on a card that
    holds no other, its peak memory held to the weights + 2 GB:
@@ -53,15 +66,19 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    runs' tokens and last logits the same bits, ms/tick, tokens/s and
    peak GB for both; the wrappers' counts of the eager run must show
    every kernel of its path once per layer that runs it and tick
-   (fused_mlp, wkv6, rglru_chunked; none for the MoE archs, whose
-   experts are plain products) and no other kernel (flash attention runs
-   only without a cache, so never in decode), those of the graph run
+   (fused_mlp, wkv6, rglru_chunked, decode_attention on every attention
+   layer; the MoE archs' experts are plain products) and no other kernel
+   (flash attention runs only without a cache, so never in decode), those
+   of the graph run
    once per layer in its warm-up step and capture, and a profiled graph
    run one ``cudaGraphLaunch`` a tick and every kernel once per layer
    and tick inside the replays; both engines' steady ticks are profiled
    for device time and busy share; one decode step is then compared with
    the plain path from the same cache, and taken again from another
-   copy of the cache for the same bits; the two recurrent archs also run
+   copy of the cache for the same bits (the MoE archs layer by layer:
+   each layer's attention in bf16, and beside it the same with each
+   row's newest key left out, which must read above the limit; each
+   whole layer in float32); the two recurrent archs also run
    ``forward`` on a (2, 512) prompt, each layer's output with the
    kernels is held against the plain path's from the same input, and the
    logits against the plain path with its recurrence in float64; their
@@ -89,7 +106,7 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    tokens (72 flash launches, nothing else), bf16 logits against the
    plain path and each encoder and decoder layer as a float32 twin, then
    32 teacher-forced ``whisper_decode_step``s from the encoded cache (24
-   flash launches a step, cross-attention), each step's logits against
+   flash and 24 decode_attention launches a step), each step's logits against
    the forward's at that position, and one step against the plain path
    and again from a copy of the cache for the same bits;
 5. plan: the 8 XR-bench tasks on ``PAPER_HW``/AMP through
@@ -112,8 +129,8 @@ imports ``src/repro_torch``, never JAX and nothing of ``repro``):
    and one scan's call time through the staged copy beside the same
    scan through two pageable copies;
 7. small reference: the ten smoke configs in float32 on the card,
-   decode logits (plain attention) against prefill logits (the flash
-   kernel) at every position (the hybrid past its local attention's
+   decode logits (the decode-attention kernel) against prefill logits
+   (the flash kernel) at every position (the hybrid past its local attention's
    ring-buffer wrap, gemma3-4b past its local window, the MoE configs
    with capacity for every token, whisper's decode against
    ``whisper_forward``, qwen2-vl's text-only decode against the dense
@@ -212,6 +229,14 @@ LOGIT_TOL = 5e-2
 #: plain path from the same input, relative to the output's largest
 #: value: summation order in the recurrence only
 LAYER_TOL = 1e-4
+#: one decode layer's attention of a MoE arch in bf16 at full width,
+#: kernel path vs plain path from the same input, relative to the
+#: output's largest value: the plain path rounds the scores to bf16, the
+#: kernel does not, and both round the output and its projection.  On an
+#: H100 granite-moe-1b-a400m and moonshot-v1-16b-a3b read at most
+#: 0.0056-0.0060 over four feeds each, and with each row's newest key
+#: left out at least 0.15-0.23 in every layer
+MOE_ATTN_TOL_BF16 = 3e-2
 #: smoke configs in float32: decode vs prefill differ in summation order
 SMALL_TOL = 1e-4
 #: ``init_model`` may hold this much above the weights at its peak (one
@@ -294,7 +319,9 @@ FLASH_TOL = {"bfloat16": 3e-2, "float32": 3e-4}
 #: ulps of the larger of |exp| and the RMS of exp's row (``_ulp_err``):
 #: FLASH_TOL is about as large as a long row's typical output.  On an
 #: H100 every row read 2.0-2.25 ulps, and the reference with one kv tile
-#: cut from the rows that reach it 112-612
+#: cut from the rows that reach it 112-612; bf16 decode-attention rows,
+#: against the plain version in float32, 0.90-1.63, the reference with
+#: one chunk cut 140-870 and with the newest key left out 33-389
 FLASH_ULP_LIMIT = 4.0
 #: (label, B, S, T, H, Hkv, hd, causal, window): gemma3-4b's forward at
 #: (1, 8192) and (2, 2048), local (window 1024) and global; a ragged S;
@@ -404,7 +431,8 @@ def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     results = build.build(["fused_mlp", "maxplus_scan", "price_rows",
-                           "rwkv6_scan", "rglru_scan", "flash_attention"])
+                           "rwkv6_scan", "rglru_scan", "flash_attention",
+                           "decode_attention"])
     print(f"build: {len(results)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s")
     usage = {}
@@ -977,6 +1005,170 @@ def phase_flash(usage: dict):
             for dt in ("bfloat16", "float32")]
 
 
+#: decode attention's shapes: (label, B, T, H, Hkv, hd, window, fill),
+#: fill the mean admitted positions of a slot ("wrapped": every slot past
+#: the ring's wrap); the first four are the two benchmark cells' shapes,
+#: the last two the MoE archs' decode as ``serve_arch`` serves them (4
+#: slots of 128, G = 2 at hd 64 and G = 1 at hd 128), filled into both
+#: of their chunks
+DECODE_SHAPES = [
+    ("chat-338", 64, 2048, 16, 2, 128, 2048, 338),
+    ("chat-2047", 64, 2048, 16, 2, 128, 2048, 2047),
+    ("batch-338", 32, 2048, 40, 10, 128, 2047, 338),
+    ("batch-2047", 32, 2048, 40, 10, 128, 2047, 2047),
+    ("gemma3-local", 4, 2048, 8, 4, 256, 1024, 1024),
+    ("hybrid-wrapped", 4, 2048, 10, 1, 256, 2048, "wrapped"),
+    ("whisper-self", 4, 448, 16, 16, 64, 448, 224),
+    ("granite-moe-serve", 4, 128, 16, 8, 64, 128, 64),
+    ("moonshot-serve", 4, 128, 16, 16, 128, 128, 64)]
+
+
+def _decode_positions(B: int, T: int, fill, gen):
+    """(B, 1) int64 positions: a full fill puts every slot at T - 1, a
+    mean fill spreads the slots' positions evenly over [0, 2 fill - 2]
+    (mean fill - 1, 0 and the top among them), "wrapped" draws them in
+    [T, 3 T)."""
+    import torch
+    if fill == "wrapped":
+        return torch.randint(T, 3 * T, (B, 1), generator=gen, device="cuda")
+    if fill >= T - 1:
+        return torch.full((B, 1), T - 1, dtype=torch.long, device="cuda")
+    top = 2 * fill - 2
+    return torch.tensor([[round(top * b / (B - 1))] for b in range(B)],
+                        dtype=torch.long, device="cuda")
+
+
+def check_decode_attention(label: str, B: int, T: int, H: int, Hkv: int,
+                           hd: int, window: int, fill, dtype_name: str,
+                           usage: dict):
+    """One shape: the decode-attention kernel against its plain version,
+    called twice for the same bits, with its registers and spills, its
+    time by CUDA events and by the profiler (split and combine passes),
+    the card's readings around each window, the bound (the admitted K and
+    V bytes, q and o) and ``scaled_dot_product_attention`` over the ring
+    mask as the yardstick.  bf16 rows are also held element by element to
+    ``FLASH_ULP_LIMIT`` ulps of the plain version in float32 from the same
+    bf16 inputs (``FLASH_TOL`` is about as large as a long row's typical
+    output); two faults planted in that reference show that the limit
+    sees them (``_decode_faults``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (choose_chunk,
+                                                      decode_attention_op,
+                                                      decode_attention_ref,
+                                                      ring_mask)
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(B * 1000 + T + hd)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = rnd(B, 1, H, hd), rnd(B, T, Hkv, hd), rnd(B, T, Hkv, hd)
+    pos = _decode_positions(B, T, fill, gen)
+
+    def kernel():
+        return decode_attention_op(q, k, v, pos, window)
+
+    out = kernel()
+    repeatable = bool(torch.equal(out, kernel()))
+    exp = decode_attention_ref(q, k, v, pos, window)
+    torch.cuda.synchronize()
+    check(out.dtype == q.dtype and out.shape == q.shape,
+          f"decode_attention {label}: {out.dtype} {tuple(out.shape)}")
+    check(repeatable, f"decode_attention {label} {dtype_name}: two calls "
+                      "gave different bits")
+    tol = FLASH_TOL[dtype_name]
+    err, ok = _norm_err(out.float(), exp.float(), tol)
+    ok = ok and bool(torch.isfinite(out).all())
+    del exp
+    mask = ring_mask(pos, T, window)
+    admitted = int(mask.sum())
+    chunk = choose_chunk(B, Hkv, T, hd,
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
+    ulp_err, faults = None, {}
+    if dtype == torch.bfloat16:
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        exp32 = decode_attention_ref(q32, k32, v32, pos, window)
+        ulp_err = _ulp_err(out.float(), exp32)
+        faults = {name: _ulp_err(f, exp32) for name, f in _decode_faults(
+            q32, k32, v32, pos, mask, chunk).items()}
+        del q32, k32, v32, exp32
+    ms, clocks_events = smi_around(
+        lambda: time_ms(kernel, torch.cuda.synchronize))
+    dev_us, clocks_profiler = smi_around(
+        lambda: device_us(kernel, MODEL_KERNELS["decode_attention"],
+                          calls=5))
+    # the yardstick: one PyTorch call on (B, H, 1, hd) views, GQA inside
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)
+
+    lib_err = float((library().transpose(1, 2).float() - out.float())
+                    .abs().max())
+    size = torch.finfo(dtype).bits // 8
+    nbytes = (2 * admitted * Hkv + 2 * B * H) * hd * size
+    bound_ms, bound_by = _bound(nbytes, 4 * hd * H * admitted, dtype_name)
+    sync = torch.cuda.synchronize
+    split = (f"decode_attention_kernel_split_bf16<{hd}, {chunk}>"
+             if dtype == torch.bfloat16 else
+             f"decode_attention_kernel_split_fp32<{hd}>")
+    row = {"shape": label, "B": B, "T": T, "H": H, "Hkv": Hkv, "hd": hd,
+           "window": window, "dtype": dtype_name,
+           "mean_fill": admitted / B, "chunk": chunk, "function": split,
+           "ptxas": usage.get(split), "max_abs_err": err, "tol": tol,
+           "ulp_err": ulp_err, "ulp_limit": FLASH_ULP_LIMIT,
+           "fault_ulp": faults, "ok": ok, "repeatable": repeatable, "ms": ms,
+           "device_ms": _us_to_ms(dev_us), "clocks_events": clocks_events,
+           "clocks_profiler": clocks_profiler,
+           "plain_ms": time_ms(lambda: decode_attention_ref(
+               q, k, v, pos, window), sync),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": time_ms(library, sync),
+           "library_kernel": _top_kernel(library),
+           "library_max_abs_err": lib_err}
+    print("decode_attention " + json.dumps(row))
+    check(ok, f"decode_attention {label} {dtype_name}: max err {err:.3g} "
+              f"above tol {tol}")
+    if ulp_err is not None:
+        check(ulp_err <= FLASH_ULP_LIMIT,
+              f"decode_attention {label} bfloat16: {ulp_err:.3g} ulps above "
+              f"the limit {FLASH_ULP_LIMIT}")
+    for name, ulps in faults.items():
+        check(ulps > FLASH_ULP_LIMIT,
+              f"decode_attention {label}: the fault '{name}' reads "
+              f"{ulps:.3g} ulps, within the limit {FLASH_ULP_LIMIT}")
+    return row
+
+
+def _decode_faults(q, k, v, pos, mask, chunk: int) -> dict:
+    """The plain version (``_sdpa``) in float32 with a fault planted in
+    its mask: "chunk_cut" leaves out the second of the kernel's chunks
+    of cache slots, as a kernel that dropped a chunk would; "newest_key"
+    leaves out each row's newest key (slot pos mod T), an off-by-one in
+    the fill, where the row admits another key."""
+    import torch
+    from repro_torch.models.layers import _sdpa
+    T = k.shape[1]
+    cut = mask.clone()
+    cut[:, :, chunk:2 * chunk] = False
+    j = torch.arange(T, device=pos.device)
+    newest = mask & ((j != (pos % T)[:, :, None])
+                     | (mask.sum(-1, keepdim=True) < 2))
+    return {"chunk_cut": _sdpa(q, k, v, cut, None),
+            "newest_key": _sdpa(q, k, v, newest, None)}
+
+
+def phase_decode_attention(usage: dict):
+    """The decode-attention kernel at the serving paths' shapes, bf16 and
+    float32."""
+    return [check_decode_attention(*shape, dt, usage)
+            for shape in DECODE_SHAPES for dt in ("bfloat16", "float32")]
+
+
 def _us_to_ms(us):
     return None if us is None else us / 1e3
 
@@ -1398,17 +1590,20 @@ def phase_simulate(plans):
 #: kernel's CUDA function (as the profiler reports it)
 MODEL_KERNELS = {"fused_mlp": "fused_mlp_kernel", "wkv6": "wkv6_kernel",
                  "rglru_chunked": "rglru_kernel",
-                 "flash_attention": "flash_attention_kernel"}
+                 "flash_attention": "flash_attention_kernel",
+                 "decode_attention": "decode_attention_kernel"}
 
 
 def _model_kernels():
+    from repro_torch.kernels.decode_attention import decode_attention_op
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_mlp import fused_mlp
     from repro_torch.kernels.rglru_scan import rglru_chunked
     from repro_torch.kernels.rwkv6_scan import wkv6
     return {"fused_mlp": fused_mlp, "wkv6": wkv6,
             "rglru_chunked": rglru_chunked,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "decode_attention": decode_attention_op}
 
 
 def _zero_counts():
@@ -1425,14 +1620,17 @@ def _per_call(cfg, forward: bool = False) -> dict:
     when ``forward``): one per layer that runs it.  The hybrid's MLP
     never takes ``fused_mlp`` (the reference calls ``swiglu`` there
     without the config); flash attention runs on every attention layer
-    of a forward and never in decode.  A MoE layer's experts are plain
-    products, as in the reference: its decode runs no hand-written
-    kernel, its forward the flash kernel only.  A vlm layer is a dense
-    one.  The encoder-decoder's MLP is plain GELU (no kernel in the
-    reference): its forward runs flash in every encoder layer and twice in
-    every decoder layer (self- and cross-attention), its decode step once
-    a decoder layer (cross-attention; self-attention reads the cache)."""
-    n = {"fused_mlp": 0, "wkv6": 0, "rglru_chunked": 0, "flash_attention": 0}
+    of a forward and never in decode, the decode-attention kernel on
+    every attention layer of a decode step (self-attention over the
+    cache) and never in a forward.  A MoE layer's experts are plain
+    products, as in the reference.  A vlm layer is a dense one.  The
+    encoder-decoder's MLP is plain GELU (no kernel in the reference): its
+    forward runs flash in every encoder layer and twice in every decoder
+    layer (self- and cross-attention), its decode step flash once a
+    decoder layer (cross-attention)."""
+    n = {"fused_mlp": 0, "wkv6": 0, "rglru_chunked": 0, "flash_attention": 0,
+         "decode_attention": 0}
+    attn = cfg.n_layers
     if cfg.arch_kind == "encdec":
         n["flash_attention"] = (cfg.n_enc_layers + 2 * cfg.n_layers
                                 if forward else cfg.n_layers)
@@ -1440,14 +1638,17 @@ def _per_call(cfg, forward: bool = False) -> dict:
         n["flash_attention"] = cfg.n_layers if forward else 0
     elif cfg.arch_kind == "rwkv":
         n["wkv6"] = cfg.n_layers
+        attn = 0
     elif cfg.arch_kind == "hybrid":
         rec = sum(cfg.block_pattern[l % len(cfg.block_pattern)] == "rglru"
                   for l in range(cfg.n_layers))
         n["rglru_chunked"] = rec
-        n["flash_attention"] = (cfg.n_layers - rec) if forward else 0
+        attn = cfg.n_layers - rec
+        n["flash_attention"] = attn if forward else 0
     else:
         n["fused_mlp"] = cfg.n_layers
         n["flash_attention"] = cfg.n_layers if forward else 0
+    n["decode_attention"] = 0 if forward else attn
     return n
 
 
@@ -1545,13 +1746,14 @@ PROFILE_DROP_SHARE = 0.02
 
 def _kernel_events(prof) -> dict:
     """Each model kernel's launches in a profiled window, from its device
-    events (``fused_mlp``'s reduction of F splits, a second CUDA function
-    of one launch, not counted), and the host's ``cudaGraphLaunch``
-    calls."""
+    events (``fused_mlp``'s reduction of F splits and
+    ``decode_attention``'s combine pass, second CUDA functions of one
+    launch, not counted), and the host's ``cudaGraphLaunch`` calls."""
     import torch
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
-    out = {name: sum(fn in n and "reduce" not in n for n in names)
+    out = {name: sum(fn in n and "reduce" not in n and "combine" not in n
+                     for n in names)
            for name, fn in MODEL_KERNELS.items()}
     out["graph_launches"] = sum(e.name.startswith("cudaGraphLaunch")
                                 for e in prof.events()
@@ -1650,9 +1852,21 @@ def serve_arch(arch: str, params, cfg):
     first (the graph engine captures in its first).  Then one decode step
     is compared with the plain path from the same cache: in bf16 for the
     dense, moe and vlm archs, through ``_float32_twin`` (the cache cast to
-    float32) for the recurrent ones.  The kernel path's step is taken a
-    second time from another copy of the cache and must give the same
-    bits.  A vlm serves text only, as the reference's decode."""
+    float32) for the recurrent ones.  A MoE arch's bf16 reading is
+    recorded with the plain step given the kernel path's expert picks
+    (``_pinned_routing``) and without, and not held: these random-weight
+    nets grow the last bits in which any two decode attentions differ
+    into another output (granite-moe-1b-a400m reads 0.12 between
+    ``_sdpa`` and a float32 witness with no kernel, the picks pinned).
+    A MoE arch is held instead layer by layer (``_decode_layers``): each
+    layer's attention in bf16, the served path (``MOE_ATTN_TOL_BF16``),
+    and each whole layer in float32 (``LAYER_TOL``); in bf16 the kernel
+    path with each row's newest key left out (``_newest_key_dropped``)
+    must read above the bf16 limit in every layer, which shows that the
+    limit sees such a fault.  The kernel path's
+    step is taken a second time from another copy of the cache and must
+    give the same bits.  A vlm serves text only, as the reference's
+    decode."""
     import gc
 
     import torch
@@ -1747,14 +1961,35 @@ def serve_arch(arch: str, params, cfg):
     p_cmp, c_cmp = ((params, cfg) if cfg.arch_kind in ("dense", "moe",
                                                         "vlm")
                     else _float32_twin(params, cfg))
-    logits = {}
+    logits, routes = {}, {True: [], False: []}
+    moe = bool(cfg.n_experts)
     with torch.inference_mode():
         for use in (True, False):
             c = dataclasses.replace(c_cmp, use_kernels=use)
-            logits[use], _ = decode_step(
-                p_cmp, c, feed, _copy(engine.cache, c_cmp.dtype), index)
+            with _routings(routes[use]):
+                logits[use], _ = decode_step(
+                    p_cmp, c, feed, _copy(engine.cache, c_cmp.dtype), index)
+        unpinned = None
+        if moe:
+            flips = sum(int(_routing_diffs(rk, rp)[0].sum())
+                        for rk, rp in zip(routes[True], routes[False]))
+            unpinned = {"logit_rel_diff": _rel_logit_diff(
+                logits[True], logits[False], cfg)[0], "routing_flips": flips}
+            with _pinned_routing([r[0] for r in routes[True]]):
+                logits[False], _ = decode_step(
+                    p_cmp, dataclasses.replace(c_cmp, use_kernels=False),
+                    feed, _copy(engine.cache, c_cmp.dtype), index)
         again, _ = decode_step(p_cmp, c_cmp, feed,
                                _copy(engine.cache, c_cmp.dtype), index)
+        layer_rels = {}
+        if moe:
+            for name, dtype in (("bfloat16", cfg.dtype),
+                                ("float32", torch.float32)):
+                layer_rels[name] = _decode_layers(
+                    params, cfg, engine.cache, feed, index, dtype)
+            with _newest_key_dropped():
+                layer_rels["bfloat16_fault"] = _decode_layers(
+                    params, cfg, engine.cache, feed, index, cfg.dtype)
     repeatable = bool(torch.equal(again, logits[True]))
     del again, engine, eager
     check(repeatable, f"{arch}: two decode steps from the same cache gave "
@@ -1765,11 +2000,37 @@ def serve_arch(arch: str, params, cfg):
     dt_name = str(c_cmp.dtype).removeprefix("torch.")
     serve.update(logit_rel_diff=rel, logit_tol=LOGIT_TOL,
                  logit_dtype=dt_name, argmax_agreement=agree,
-                 decode_repeatable=repeatable)
-    print(f"{arch} decode step ({dt_name}), kernel vs plain path: max "
-          f"|diff| / max |logit| = {rel:.3g} (tol {LOGIT_TOL}), argmax "
-          f"agreement {agree:.2f}, a second step bit-equal: {repeatable}")
-    check(rel <= LOGIT_TOL, f"{arch}: kernel path logits off by {rel:.3g}")
+                 decode_repeatable=repeatable, routing_unpinned=unpinned,
+                 layer_rel_diff=layer_rels or None, layer_tol=LAYER_TOL,
+                 attention_tol_bf16=MOE_ATTN_TOL_BF16)
+    bf16, f32, fault = (layer_rels.get(k) for k in (
+        "bfloat16", "float32", "bfloat16_fault"))
+    print(f"{arch} decode step ({dt_name}), kernel vs plain path"
+          f"{' (expert picks pinned)' if moe else ''}: max "
+          f"|diff| / max |logit| = {rel:.3g} (tol {LOGIT_TOL}"
+          f"{', not held: see below' if moe else ''}), argmax "
+          f"agreement {agree:.2f}, a second step bit-equal: {repeatable}"
+          + (f"; unpinned {unpinned['logit_rel_diff']:.3g} with "
+             f"{unpinned['routing_flips']} routing flips; each layer "
+             f"kernel vs plain from the same input: bf16 attention max "
+             f"{max(bf16['attention']):.3g} (tol {MOE_ATTN_TOL_BF16}), "
+             f"with the newest key dropped min {min(fault['attention']):.3g}"
+             f"; float32 layer max {max(f32['layer']):.3g} "
+             f"(tol {LAYER_TOL})" if moe else ""))
+    if moe:
+        check(max(bf16["attention"]) <= MOE_ATTN_TOL_BF16,
+              f"{arch}: a decode layer's bf16 kernel-path attention is off "
+              f"by {max(bf16['attention']):.3g}: {bf16['attention']}")
+        check(min(fault["attention"]) > MOE_ATTN_TOL_BF16,
+              f"{arch}: a decode layer's attention with the newest key "
+              f"dropped reads {min(fault['attention']):.3g}, within the "
+              f"limit {MOE_ATTN_TOL_BF16}: {fault['attention']}")
+        check(max(f32["layer"]) <= LAYER_TOL,
+              f"{arch}: a decode layer's float32 kernel-path output is off "
+              f"by {max(f32['layer']):.3g}: {f32['layer']}")
+    else:
+        check(rel <= LOGIT_TOL,
+              f"{arch}: kernel path logits off by {rel:.3g}")
     del p_cmp, logits
     gc.collect()
     lap("decode_step_vs_plain")
@@ -1782,6 +2043,84 @@ def serve_arch(arch: str, params, cfg):
     serve["part_seconds"] = parts
     print(f"{arch} serve parts (s): " + json.dumps(parts))
     return serve
+
+
+def _decode_layers(params, cfg, cache, feed, index, dtype) -> dict:
+    """One decode step of a uniform-layer arch in ``dtype``, one layer at
+    a time (in float32 each layer's twin: a float32 copy of a whole MoE
+    model need not fit the card): each layer on the kernel path against
+    the plain path from the same input and a copy of that layer's cache,
+    the plain path given the kernel path's expert picks
+    (``_pinned_routing``); the next layer takes the kernel path's output.
+    Each layer's max |diff| / max |output| ("layer"), and the same of its
+    attention's output ("attention", before the residual add: in bf16 the
+    layer's output rounds the residual stream, whose largest values
+    dwarf one attention's part)."""
+    import torch
+    from repro_torch.models.transformer import (_embed, _layer,
+                                                _uniform_layer,
+                                                layer_windows)
+    cast = dtype if dtype != cfg.dtype else None
+    kern = dataclasses.replace(cfg, dtype=dtype)
+    plain = dataclasses.replace(kern, use_kernels=False)
+    x = _embed(params["embed"], feed).to(dtype)
+    positions = index[:, None]
+    rels = {"layer": [], "attention": []}
+    for l, win in enumerate(layer_windows(cfg)):
+        lp = _layer(params["layers"], l)
+        lp = lp if cast is None else _copy(lp, cast)
+        lc = _layer(cache, l)
+        lc = lc if cast is None else _copy(lc, cast)
+        routes, attn = [], []
+        with _routings(routes), _attention_outputs(attn):
+            out, _ = _uniform_layer(kern, x, lp, win, positions, _copy(lc),
+                                    index)
+        with _pinned_routing([r[0] for r in routes]), \
+                _attention_outputs(attn):
+            want, _ = _uniform_layer(plain, x, lp, win, positions,
+                                     _copy(lc), index)
+        rels["layer"].append(_layer_rel(out.float(), want.float()))
+        rels["attention"].append(_layer_rel(attn[0].float(), attn[1].float()))
+        x = out
+        del lp, lc, want, attn
+    return rels
+
+
+@contextlib.contextmanager
+def _attention_outputs(out: list):
+    """While active, each ``attention`` call of a decoder layer appends
+    its output to ``out``."""
+    from repro_torch.models import transformer
+    attention = transformer.attention
+
+    def recording(*args, **kwargs):
+        o = attention(*args, **kwargs)
+        out.append(o)
+        return o
+
+    transformer.attention = recording
+    try:
+        yield
+    finally:
+        transformer.attention = attention
+
+
+@contextlib.contextmanager
+def _newest_key_dropped():
+    """While active, the decode kernel reads each row as if it sat one
+    position earlier: before the ring wraps, its newest key (the one the
+    step has just written) is left out, an off-by-one in the fill."""
+    from repro_torch.models import layers
+    op = layers.decode_attention_op
+
+    def faulty(q, k, v, positions, window):
+        return op(q, k, v, (positions - 1).clamp(min=0), window)
+
+    layers.decode_attention_op = faulty
+    try:
+        yield
+    finally:
+        layers.decode_attention_op = op
 
 
 def profile_ticks(params, cfg, ms_per_tick: float, cuda_graph: bool,
@@ -3738,7 +4077,8 @@ def mesh_prefill(usage: dict):
     L = cfg.n_layers
     check(launches["fused_mlp"] == L and launches["flash_attention"] == L
           and not launches["wkv6"] and not launches["rglru_chunked"]
-          and not launches["maxplus_chunked"] and not launches["price_rows"],
+          and not launches["maxplus_chunked"] and not launches["price_rows"]
+          and not launches["decode_attention"],
           f"mesh prefill: launches {launches}, want {L} fused_mlp and {L} "
           "flash_attention")
     rel, agree = _rel_logit_diff(logits, want, cfg)
@@ -3871,6 +4211,7 @@ def _run_phases(smi, dryrun, t_start):
     wkv_rows, rg_rows = timed("recurrence_kernels",
                               phase_recurrence_kernels, floor_ms)
     flash_rows = timed("flash", phase_flash, usage)
+    decode_rows = timed("decode_attention", phase_decode_attention, usage)
     serves, forwards, inits = timed("models", phase_models)
     serve = serves["qwen2.5-3b"]
     plan, plans, calls = timed("planner", phase_planner)
@@ -4075,6 +4416,26 @@ def _run_phases(smi, dryrun, t_start):
             "whisper-medium decode step": (
                 forwards["whisper-medium"]["decode_step_launches"]
                 ["flash_attention"])}})
+    # decode attention replaces no TPU kernel; its main rows are the two
+    # benchmark cells' shapes at a mean fill, its launches one a layer of
+    # a decode step (qwen2.5-3b's serve run: wrappers and replays)
+    dr = {r["shape"]: r for r in decode_rows if r["dtype"] == "bfloat16"}
+    kernels.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": None,
+        "launches": serve["launches"]["decode_attention"],
+        "replayed_launches": serve["replayed_launches"]["decode_attention"],
+        "max_abs_err": dr["chat-338"]["max_abs_err"],
+        "ms": dr["chat-338"]["ms"], "device_ms": dr["chat-338"]["device_ms"],
+        "plain_ms": dr["chat-338"]["plain_ms"],
+        "bound_ms": dr["chat-338"]["bound_ms"],
+        "bound_by": dr["chat-338"]["bound_by"],
+        "library_ms": dr["chat-338"]["library_ms"],
+        "rows": {label: {f: r[f] for f in (
+            "mean_fill", "chunk", "max_abs_err", "ms", "device_ms",
+            "plain_ms", "bound_ms", "library_ms")}
+            for label, r in dr.items()}})
     # the training path runs no hand-written kernel (the reference's
     # jax.grad cannot pass through pallas_call; the port trains on the
     # plain path as the reference does)
@@ -4096,6 +4457,7 @@ def _run_phases(smi, dryrun, t_start):
               "price_rows_rows": pr_rows, "price_rows_calls": pr_calls,
               "wkv6_rows": wkv_rows,
               "rglru_rows": rg_rows, "flash_rows": flash_rows,
+              "decode_attention_rows": decode_rows,
               "launch_floor_ms": floor_ms,
               "serve": serve, "serves": serves, "forwards": forwards,
               "inits": inits,

@@ -9,5 +9,8 @@ candidate pricing, ``repro.core.pipeline_model_jax``'s device function),
 ``rglru_scan.rglru_chunked`` (the Pallas RG-LRU recurrence) and
 ``flash_attention`` (the Pallas flash attention; ``attention_op`` is its
 entry in the model's layout, GQA by head-group indexing).  With it every
-Pallas kernel of the reference has a CUDA counterpart.
+Pallas kernel of the reference has a CUDA counterpart.  One kernel
+replaces no Pallas kernel: ``decode_attention`` (the serving tick's
+one-token attention over each slot's cache, which the reference leaves
+to its plain einsums).
 """

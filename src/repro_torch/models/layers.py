@@ -14,7 +14,10 @@ cross-attention) attention takes, under ``cfg.use_kernels``, the
 hand-written flash-attention kernel
 (``kernels.flash_attention.attention_op``) at any length, causal or not;
 otherwise the reference's einsum path, chunked from
-``CHUNKED_ATTN_THRESHOLD`` on when causal.  The experts' products and the
+``CHUNKED_ATTN_THRESHOLD`` on when causal.  A one-token decode takes,
+under ``cfg.use_kernels``, the hand-written decode kernel
+(``kernels.decode_attention.decode_attention_op``), which reads the
+cache in place.  The experts' products and the
 GELU MLP are plain products, as in the reference, which has no kernel
 for them.
 """
@@ -28,6 +31,8 @@ from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.distributed.hints import (axis_sizes, current_mesh, hint,
                                            local_call, write_slice)
+from repro_torch.kernels.decode_attention import (decode_attention_op,
+                                                  ring_mask)
 from repro_torch.kernels.flash_attention import attention_op
 from repro_torch.kernels.fused_mlp import mlp_block
 
@@ -288,19 +293,6 @@ def _place(cache: torch.Tensor, new: torch.Tensor, index: Index) -> None:
         cache[:, i:i + S] = new
 
 
-def _ring_mask(positions: torch.Tensor, T: int, window: int
-               ) -> torch.Tensor:
-    """(B, 1, T) mask of a ring-buffer cache for one query per row at
-    real position ``pos``: slot j holds position
-    p_j = pos - (((pos mod T) - j) mod T), admitted when 0 <= p_j <= pos
-    and pos - p_j < window.  Before the ring wraps (pos < T) this is the
-    linear cache's causal, fill and window mask."""
-    pos = positions[:, :, None]                               # (B,1,1)
-    j = torch.arange(T, device=positions.device)[None, None, :]
-    p_j = pos - torch.remainder(torch.remainder(pos, T) - j, T)
-    return (p_j >= 0) & (p_j <= pos) & (pos - p_j < window)
-
-
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor,
               window: Optional[int] = None,
@@ -336,10 +328,13 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
     Without a cache, ``cfg.use_kernels`` sends q, k and v to the flash
     kernel at any S, with ``causal`` as given; otherwise a causal
     S >= ``CHUNKED_ATTN_THRESHOLD`` takes ``_sdpa_chunked`` (window 0 on
-    global layers), as in the reference.  Decode stays on ``_sdpa``
-    either way: its query sits at a per-slot position against a per-slot
-    cache fill, and the kernel, like the reference's, counts query rows
-    from 0.
+    global layers), as in the reference.  The one-token decode without
+    ``kv_quant`` takes, under ``cfg.use_kernels``, the decode kernel
+    (``kernels.decode_attention.decode_attention_op``), which reads each
+    row's admitted slots of the cache in place at the row's own position;
+    without ``use_kernels``, and on a mesh (q a ``DTensor``), it stays on
+    ``_sdpa`` over the ring mask, which computes the kernel's plain
+    version.  The int8 ``kv_quant`` cache always takes ``_sdpa``.
     """
     B, S, _ = x.shape
     if positions.ndim == 1:
@@ -365,8 +360,12 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
             slot = torch.remainder(index, T) if per_slot else index % T
             _place(ck, k, slot)
             _place(cv, v, slot)
-            mask = _ring_mask(positions, T, T if window is None else window)
-            out = _sdpa(q, ck, cv, mask, cfg)
+            w = T if window is None else window
+            if cfg.use_kernels and not isinstance(q, DTensor):
+                out = decode_attention_op(q, ck, cv, positions.contiguous(),
+                                          w)
+            else:
+                out = _sdpa(q, ck, cv, ring_mask(positions, T, w), cfg)
             return _merge(out) @ p["wo"]
         if cfg.kv_quant:
             # int8 cache with per-vector scales: quantize the new slice,

@@ -713,11 +713,12 @@ def test_flash_attention_reference_layout_and_checks():
 def test_gemma3_takes_the_flash_kernel_on_the_card():
     """gemma3-4b smoke in float32 on the card: forward through the flash
     kernel (one launch per layer) against the plain path, at S = 24 and
-    at the chunked length S = 8192, and decode (plain attention) against
-    forward past the local window."""
+    at the chunked length S = 8192, and decode (the decode-attention
+    kernel, one launch a layer) against forward past the local window."""
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention_op
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import decode_step, forward, init_cache, \
         init_model
@@ -740,11 +741,13 @@ def test_gemma3_takes_the_flash_kernel_on_the_card():
         full, _ = forward(params, cfg, toks)
         cache = init_cache(cfg, 1, 32, device="cuda")
         before = flash_attention.launches
+        d0 = decode_attention_op.launches
         steps = []
         for i in range(14):
             lg, cache = decode_step(params, cfg, toks[:, i:i + 1], cache, i)
             steps.append(lg[:, 0])
         assert flash_attention.launches == before
+        assert decode_attention_op.launches == d0 + 14 * cfg.n_layers
     torch.testing.assert_close(torch.stack(steps, 1), full, atol=1e-4,
                                rtol=1e-4)
 
@@ -754,11 +757,13 @@ def test_vlm_and_whisper_take_the_flash_kernel_on_the_card():
     on: the vlm forward (patches + text) launches flash and ``fused_mlp``
     once a layer and agrees with the plain path; whisper's forward
     launches flash n_enc_layers + 2 n_layers times, its decode step
-    n_layers times (cross-attention, S = 1), and decode agrees with
-    forward at every position."""
+    n_layers times (cross-attention, S = 1) and the decode-attention
+    kernel n_layers times (self-attention over the cache), and decode
+    agrees with forward at every position."""
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention_op
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import (encode_frames, forward, init_cache,
                                     init_model, whisper_decode_step,
@@ -799,9 +804,11 @@ def test_vlm_and_whisper_take_the_flash_kernel_on_the_card():
                      enc=encode_frames(params, cfg, frames))
         for i in range(toks.shape[1]):
             f0 = flash_attention.launches
+            d0 = decode_attention_op.launches
             lg, cache = whisper_decode_step(params, cfg, toks[:, i:i + 1],
                                             cache, i)
             assert flash_attention.launches == f0 + cfg.n_layers
+            assert decode_attention_op.launches == d0 + cfg.n_layers
             torch.testing.assert_close(lg[:, 0], full[:, i], atol=1e-4,
                                        rtol=1e-4)
 
@@ -842,3 +849,162 @@ def test_kernel_wrappers_refuse_grad_mode():
         call(arg)                       # grad mode, nothing requires grad
         torch.cuda.synchronize()
         assert fn.launches == before + 3
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+
+# bf16: the plain version rounds the scores to bf16 before its fp32
+# softmax, the kernel keeps them in fp32 (the flash kernel's tolerance);
+# float32: summation order only
+_DECODE_TOL = {torch.float32: 3e-4, torch.bfloat16: 3e-2}
+# _DECODE_TOL in bf16 is about as large as a long row's typical output,
+# so bf16 is also held element by element, in bf16 ulps (``_ulp_err``),
+# to the plain version in float32 from the same bf16 inputs, whose only
+# roundings the kernel does not share are P's cast to bf16 and the
+# output's; the same reference with one chunk of keys cut must read far
+# above the limit (chip_smoke.FLASH_ULP_LIMIT: on an H100 the kernel read
+# 0.90-1.63 ulps at the serving shapes, a chunk cut 140-870)
+_DECODE_ULP_LIMIT = 4.0
+
+
+def _ulp_err(out, exp):
+    """max |out - exp| in bf16 ulps of max(|exp|, the RMS of exp's row
+    over hd)."""
+    scale = torch.maximum(exp.abs(), exp.pow(2).mean(-1, keepdim=True).sqrt())
+    _, e = torch.frexp(scale)
+    return float(((out - exp).abs()
+                  / torch.ldexp(torch.ones_like(scale), e - 8)).max())
+
+# (B, T, H, Hkv, hd, window, positions): "fill" draws each slot's position
+# in [0, T) with 0 and T - 1 among them, "wrapped" in [T, 3 T)
+_DECODE_SHAPES = [
+    (64, 2048, 16, 2, 128, 2048, "fill"),      # qwen2.5-3b's chat cell
+    (32, 2048, 40, 10, 128, 2047, "fill"),     # phi3-medium-14b's batch cell
+    (8, 2048, 8, 4, 256, 1024, "fill"),        # gemma3-4b's local layers
+    (8, 2048, 10, 1, 256, 2048, "wrapped"),    # recurrentgemma-2b's ring
+    (4, 448, 16, 16, 64, 448, "fill"),         # whisper's decoder
+    (4, 128, 16, 8, 64, 128, "fill"),          # granite-moe: G = 2, hd 64
+    (4, 300, 40, 40, 128, 300, "wrapped"),     # G = 1, a ragged last chunk
+    (3, 100, 16, 1, 16, 7, "wrapped"),         # G = 16, hd 16, a window
+    (5, 64, 8, 4, 32, 64, "fill")]             # one chunk: no combine
+
+
+def _decode_inputs(B, T, H, Hkv, hd, kind, dtype, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    lo, hi = (0, T) if kind == "fill" else (T, 3 * T)
+    pos = torch.randint(lo, hi, (B, 1), generator=gen, device="cuda")
+    pos[0, 0], pos[-1, 0] = lo, hi - 1
+    return rnd(B, 1, H, hd), rnd(B, T, Hkv, hd), rnd(B, T, Hkv, hd), pos
+
+
+@pytest.mark.parametrize("B,T,H,Hkv,hd,window,kind", _DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain(B, T, H, Hkv, hd, window,
+                                               kind, dtype):
+    from repro_torch.kernels.decode_attention import (decode_attention_op,
+                                                      decode_attention_ref,
+                                                      ring_mask)
+    from repro_torch.models import layers
+    _need_card()
+    q, k, v, pos = _decode_inputs(B, T, H, Hkv, hd, kind, dtype,
+                                  seed=T + H + hd)
+    before = decode_attention_op.launches
+    out = decode_attention_op(q, k, v, pos, window)
+    torch.cuda.synchronize()
+    assert decode_attention_op.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, 1, H, hd)
+    tol = _DECODE_TOL[dtype]
+    torch.testing.assert_close(
+        out.float(), decode_attention_ref(q, k, v, pos, window).float(),
+        atol=tol, rtol=tol)
+    again = decode_attention_op(q, k, v, pos, window)
+    assert torch.equal(out, again)          # no atomics: the same bits
+    if dtype == torch.bfloat16:
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        exp = decode_attention_ref(q32, k32, v32, pos, window)
+        assert _ulp_err(out.float(), exp) <= _DECODE_ULP_LIMIT
+        if T > 64:
+            mask = ring_mask(pos, T, window)
+            mask[:, :, 32:96] = False            # 64 slots: the least chunk
+            cut = layers._sdpa(q32, k32, v32, mask, None)
+            assert _ulp_err(cut, exp) > 8 * _DECODE_ULP_LIMIT
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_replays_in_a_graph(dtype):
+    """One call captured in a CUDA graph, replayed after new positions
+    and new cache values are copied into its inputs, equals an eager call
+    on those inputs bit for bit: every CTA reads its slot's position on
+    the device."""
+    from repro_torch.kernels.decode_attention import decode_attention_op
+    _need_card()
+    B, T, H, Hkv, hd = 16, 1024, 16, 2, 128
+    q, k, v, pos = _decode_inputs(B, T, H, Hkv, hd, "fill", dtype, seed=1)
+    decode_attention_op(q, k, v, pos, T)          # build, set attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention_op(q, k, v, pos, T)
+    for seed in (2, 3):
+        q2, k2, v2, pos2 = _decode_inputs(B, T, H, Hkv, hd, "fill", dtype,
+                                          seed=seed)
+        for dst, src in ((q, q2), (k, k2), (v, v2), (pos, pos2)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, decode_attention_op(q, k, v, pos, T))
+
+
+def test_decode_attention_launches_one_split_pass():
+    """A call whose cache spans several chunks runs the split pass and the
+    combine pass, one count; a cache of one chunk runs the split pass
+    alone.  On an H100 the profiler now and then drops the first kernel
+    record of a window, so a spin kernel opens the window and only the
+    decode kernels are counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.decode_attention import decode_attention_op
+    _need_card()
+    for T, kernels in ((2048, 2), (64, 1)):
+        q, k, v, pos = _decode_inputs(8, T, 16, 2, 128, "fill",
+                                      torch.bfloat16, seed=4)
+        decode_attention_op(q, k, v, pos, T)
+        torch.cuda.synchronize()
+        before = decode_attention_op.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1_000_000)
+            decode_attention_op(q, k, v, pos, T)
+            torch.cuda.synchronize()
+        assert decode_attention_op.launches == before + 1
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "decode_attention" in e.name]
+        assert sum("decode_attention_kernel_split" in n
+                   for n in names) == 1, names
+        assert len(names) == kernels, names
+
+
+def test_decode_attention_checks_on_the_card():
+    from repro_torch.kernels.decode_attention import decode_attention_op
+    _need_card()
+    q, k, v, pos = _decode_inputs(2, 64, 4, 2, 64, "fill", torch.bfloat16,
+                                  seed=5)
+    with pytest.raises(TypeError):
+        decode_attention_op(q.half(), k.half(), v.half(), pos, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention_op(q, k.transpose(1, 2).contiguous().transpose(
+            1, 2), v, pos, 64)
+    with pytest.raises(ValueError, match="int64"):
+        decode_attention_op(q, k, v, pos.int(), 64)
+    with pytest.raises(ValueError, match="one device"):
+        decode_attention_op(q, k, v.cpu(), pos, 64)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        decode_attention_op(q.float().requires_grad_(), k.float(),
+                            v.float(), pos, 64)

@@ -427,6 +427,57 @@ def attention_cases(rank, world, out_dir, cases):
         torch.save(results, Path(out_dir) / "attention.pt")
 
 
+def decode_dispatch(rank, world, out_dir, H, Hkv):
+    """One token of ``layers.attention`` in float32 under ``use_kernels``
+    on a (1, world) mesh, into a cache split over its sequence, with
+    ``layers.decode_attention_op`` and ``layers._sdpa`` counting their
+    calls.  Rank 0 saves the full output, the inputs, the parameters and
+    the counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.hints import to_plain, use_mesh
+    from repro_torch.distributed.sharding import NamedSharding, from_full
+    from repro_torch.models import layers
+    mesh = _mesh((1, world))
+    calls = {"decode_attention_op": 0, "_sdpa": 0}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    layers.decode_attention_op = counted("decode_attention_op",
+                                         layers.decode_attention_op)
+    layers._sdpa = counted("_sdpa", layers._sdpa)
+    cfg = dataclasses.replace(
+        get_config("qwen2.5-3b", smoke=True), n_heads=H, n_kv_heads=Hkv,
+        head_dim=8, d_model=32, dtype=torch.float32, use_kernels=True)
+    g = torch.Generator().manual_seed(5)
+    p = layers.init_attention(g, cfg)
+    p = {k: v + 0.01 * torch.randn(v.shape, generator=g)
+         for k, v in p.items()}
+    T = 2 * world * 4
+    x = torch.randn((2, 1, 32), generator=g)
+    ck, cv = (torch.randn((2, T, Hkv, 8), generator=g) for _ in range(2))
+
+    def on(t, *spec):
+        return from_full(t, NamedSharding(mesh, spec))
+
+    dp = {k: on(v, *((None, "model") if k in ("wq", "wk", "wv")
+                     else ("model", None) if k == "wo" else (None,)))
+          for k, v in p.items()}
+    inputs = {"x": x, "ck": ck.clone(), "cv": cv.clone()}
+    with use_mesh(mesh), torch.no_grad():
+        out = layers.attention(
+            dp, on(x, None, None, None), cfg, torch.full((2, 1), 5),
+            cache=(on(ck, None, "model", None, None),
+                   on(cv, None, "model", None, None)), cache_index=5)
+    full = to_plain(out)
+    if rank == 0:
+        torch.save({"out": full, "inputs": inputs, "params": p,
+                    "calls": calls}, Path(out_dir) / "decode_dispatch.pt")
+
+
 # ---------------------------------------------------------------------------
 # decode on meshes
 # ---------------------------------------------------------------------------
